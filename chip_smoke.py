@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -27,6 +28,20 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    decode-only steps.
 6. ``prefix`` — the prefix cache on: 8 requests sharing a 640-token
    prompt; the 7 that follow the first must skip its prefill.
+7. ``flash`` — the three flash-attention kernels (forward, dQ, dK/dV)
+   against their plain PyTorch versions at the training path's shapes
+   (BH=128, S=1024, D=128, causal) in fp32 and bf16, plus a bf16 dropout
+   case: max abs error against the tolerance, median times over >= 20
+   launches with the L2 cache flushed, bytes, operations and the bound;
+   ``flash_library`` times torch's scaled_dot_product_attention forward
+   and backward on the same bf16 inputs as the yardstick.
+8. ``train_parity`` — GPT-3 1.3B width at 2 layers in fp32: one forward
+   and backward through the attention kernels and one through their plain
+   versions; the loss and every gradient must agree.
+9. ``train`` — the training path: ``TrainStepper`` over the 24-layer GPT
+   at GPT-3 1.3B width, O2, AdamW, batch 8 x 1024 on one seeded batch:
+   2 warm-up and 10 timed steps, then one profiled step. The loss must
+   fall, and each flash kernel must launch 24 times per step.
 
 Then one line listing every ported kernel with its numbers, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
@@ -156,16 +171,9 @@ def rpa_work(args):
 
 
 def rpa_bound(args, peaks):
-    """The least time the card could take for one call: the larger of its
-    bytes over the HBM rate and its operations over the peak rate of the
-    inputs' type."""
-    n_bytes, n_ops = rpa_work(args)
-    peak_ops = peaks["bf16_flops" if args[0].dtype == torch.bfloat16
-                     else "fp32_flops"]
-    t_bytes = n_bytes / peaks["hbm_bytes_per_s"] * 1e3
-    t_ops = n_ops / peak_ops * 1e3
-    return dict(bytes=n_bytes, ops=n_ops, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    """The least time the card could take for one call (:func:`bound_of`
+    of its work)."""
+    return bound_of(*rpa_work(args), args[0].dtype, peaks)
 
 
 class AttentionProbe:
@@ -528,6 +536,316 @@ def phase_prefix(device, cfg, model, launches_of, reset_launches):
         raise AssertionError("prefix-cache serve failed its checks")
 
 
+# --------------------------------------------------- flash attention
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # x max(1, |plain|)
+
+
+def causal_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(q row, kv column) pairs attention computes: all of them, or those
+    with ``row + (sk - sq) >= col`` when causal."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, r + sk - sq + 1) for r in range(sq))
+
+
+def flash_work(kind: str, bh: int, sq: int, sk: int, d: int, elem: int,
+               causal: bool):
+    """Bytes each kernel must move (every input read once, every output
+    written once) and the operations it must do, from the call's shapes:
+    forward q k v -> out + lse, 2 matmuls per pair; dQ q k v do lse delta
+    -> dq, 3; dK/dV q k v do lse delta -> dk dv, 4."""
+    tq, tk = bh * sq * d * elem, bh * sk * d * elem
+    rows = bh * sq * 4
+    n_bytes, n_mm = {
+        "fwd": (2 * tq + 2 * tk + rows, 2),
+        "dq": (3 * tq + 2 * tk + 2 * rows, 3),
+        "dkv": (2 * tq + 4 * tk + 2 * rows, 4),
+    }[kind]
+    return n_bytes, 2 * n_mm * bh * d * causal_pairs(sq, sk, causal)
+
+
+def bound_of(n_bytes, n_ops, dtype, peaks):
+    """The least time the card could take for a call: the larger of its
+    bytes over the HBM rate and its operations over the peak rate of the
+    inputs' type."""
+    peak_ops = peaks["bf16_flops" if dtype == torch.bfloat16
+                     else "fp32_flops"]
+    t_bytes = n_bytes / peaks["hbm_bytes_per_s"] * 1e3
+    t_ops = n_ops / peak_ops * 1e3
+    return dict(bytes=n_bytes, ops=n_ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_flash(device, peaks, timer, batch=8, heads=16, s=1024, d=128):
+    """The three flash-attention kernels against their plain versions at
+    the training path's shapes (B=8, H=16 -> BH=128, S=1024, D=128,
+    causal), fp32 and bf16, plus a bf16 dropout case; median times with
+    the L2 cache flushed; scaled_dot_product_attention as the yardstick."""
+    from paddle_tpu_torch.ops.flash_attention import (flash_dkv, flash_dq,
+                                                      flash_fwd)
+
+    bh, causal = batch * heads, True
+    scale = 1.0 / d ** 0.5
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    results = {}
+    for dtype, dropout in ((torch.float32, 0.0), (torch.bfloat16, 0.0),
+                           (torch.bfloat16, 0.1)):
+        rnd = lambda: torch.randn(bh, s, d, generator=g,
+                                  device=device).to(dtype)
+        q, k, v, do = rnd(), rnd(), rnd(), rnd()
+        args = (causal, scale, dropout, 4321)
+        out, lse = flash_fwd(q, k, v, *args, impl="torch")
+        delta = (do.float() * out.float()).sum(-1)
+        calls = {
+            "fwd": lambda impl: flash_fwd(q, k, v, *args, impl=impl),
+            "dq": lambda impl: flash_dq(q, k, v, do, lse, delta, *args,
+                                        impl=impl),
+            "dkv": lambda impl: flash_dkv(q, k, v, do, lse, delta, *args,
+                                          impl=impl),
+        }
+        tag = str(dtype).replace("torch.", "") + (
+            f"_dropout{dropout}" if dropout else "")
+        for kind, call in calls.items():
+            got, want = call("cuda"), call("torch")
+            if torch.is_tensor(got):
+                got, want = (got,), (want,)
+            torch.cuda.synchronize()
+            errs = []
+            for a, b in zip(got, want):
+                err = (a.float() - b.float()).abs().max().item()
+                lim = FLASH_TOL[a.dtype] * max(1.0,
+                                               b.float().abs().max().item())
+                if not (err <= lim and torch.isfinite(a).all().item()):
+                    raise AssertionError(
+                        f"flash {kind} ({tag}) disagrees with its plain "
+                        f"version: max abs err {err} > {lim}")
+                errs.append(err)
+            res = dict(kind=kind, case=tag, max_abs_err=max(errs),
+                       tol=FLASH_TOL[dtype], bh=bh, seq=s, head_dim=d,
+                       causal=causal, dropout=dropout)
+            if not dropout:
+                res.update(ms=timer.median_ms(lambda: call("cuda")),
+                           plain_ms=timer.median_ms(lambda: call("torch")),
+                           **bound_of(*flash_work(kind, bh, s, s, d,
+                                                  q.element_size(), causal),
+                                      dtype, peaks))
+            emit("flash", name=f"flash_attention_{kind}", **res)
+            results[(kind, tag)] = res
+        if dtype == torch.bfloat16 and not dropout:
+            results["library"] = sdpa_yardstick(q, k, v, do, timer, batch)
+            emit("flash_library", **results["library"])
+        del q, k, v, do, out, lse, delta
+    torch.cuda.empty_cache()
+    return results
+
+
+def sdpa_yardstick(q, k, v, do, timer, batch):
+    """torch's scaled_dot_product_attention on the same bf16 inputs
+    ([B, H, S, D] views of the [BH, S, D] tensors), forward alone and its
+    backward as one figure. Timed here only; the port never calls it."""
+    import torch.nn.functional as F
+
+    shape = (batch, q.shape[0] // batch) + tuple(q.shape[1:])
+    qs, ks, vs = (x.reshape(shape).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    gout = do.reshape(shape)
+    fwd = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    out = fwd()
+    bwd = lambda: torch.autograd.grad(out, (qs, ks, vs), gout,
+                                      retain_graph=True)
+    return dict(sdpa_forward_ms=timer.median_ms(fwd),
+                sdpa_backward_ms=timer.median_ms(bwd))
+
+
+# ------------------------------------------------------------ training
+
+def train_config(n_layers: int):
+    """``bench.py``'s GPT-3 1.3B training configuration (its
+    ``bench_gpt13``): vocab 50304, E=2048, H=16, F=8192, 1024 positions,
+    dropout 0; ``n_layers`` of its 24."""
+    from paddle_tpu_torch.text.models import GPTConfig
+
+    return GPTConfig(vocab_size=50304, hidden_size=2048,
+                     num_layers=n_layers, num_heads=16,
+                     max_position_embeddings=1024, dropout=0.0)
+
+
+def train_batch(device, batch=8, seq=1024, vocab=50304):
+    g = torch.Generator(device=device).manual_seed(SEED + 6)
+    return torch.randint(0, vocab, (batch, seq), generator=g, device=device)
+
+
+def phase_train_parity(device, launches_of, reset_launches, cfg=None,
+                       batch=8, seq=1024):
+    """Full width at 2 layers, fp32: the same weights and batch through
+    the kernel route and the plain route of attention; the loss and every
+    gradient must agree."""
+    from paddle_tpu_torch.core import random as rng
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cfg or train_config(2)
+    ids = train_batch(device, batch, seq, cfg.vocab_size)
+    rng.seed(SEED)
+    model = GPTForCausalLM(cfg, device=device)
+    grads, losses, counts = {}, {}, {}
+    for impl in ("cuda", "torch"):
+        for blk in model.gpt.blocks:
+            blk.attn.attn_impl = impl
+        model.zero_grad(set_to_none=True)
+        reset_launches()
+        loss = model.loss(model(ids), ids)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts[impl] = launches_of()
+        losses[impl] = loss.item()
+        grads[impl] = {n: p.grad.detach().clone()
+                       for n, p in model.named_parameters()}
+    # relative norm of the difference per parameter; the k third of each
+    # qkv.bias has a gradient of zero in exact arithmetic (the softmax
+    # ignores a shift shared by every key), so both routes hold rounding
+    # noise there: it is held against the largest q/v-bias gradient
+    e = cfg.hidden_size
+    rel, k_bias_rel = {}, 0.0
+    for n, want in grads["torch"].items():
+        got = grads["cuda"][n]
+        if n.endswith("qkv.bias"):
+            k_diff = (got[e:2 * e] - want[e:2 * e]).abs().max()
+            got = torch.cat([got[:e], got[2 * e:]])
+            want = torch.cat([want[:e], want[2 * e:]])
+            k_bias_rel = max(k_bias_rel,
+                             (k_diff / want.abs().max()).item())
+        rel[n] = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+    worst = max((v, n) for n, v in rel.items())
+    loss_rel = abs(losses["cuda"] - losses["torch"]) / abs(losses["torch"])
+    want_counts = {n: cfg.num_layers for n in FLASH_KERNELS}
+    ok = (loss_rel <= 1e-5 and worst[0] <= 1e-4
+          and counts["cuda"] == want_counts and counts["torch"] == {}
+          and k_bias_rel <= 1e-4)
+    emit("train_parity", config="gpt3_1p3b width", layers=cfg.num_layers,
+         dtype="float32", batch=list(ids.shape), loss_kernel=losses["cuda"],
+         loss_plain=losses["torch"], loss_rel_err=loss_rel, loss_tol=1e-5,
+         grad_worst_rel_err=worst[0], grad_worst=worst[1], grad_tol=1e-4,
+         k_bias_grad_rel_err=k_bias_rel, k_bias_tol=1e-4, launches=counts,
+         ok=ok)
+    if not ok:
+        raise AssertionError("train step: kernel route and plain route "
+                             "disagree")
+    del model, grads
+    torch.cuda.empty_cache()
+
+
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv")
+GEMM_MARKS = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "nvjet", "cublas")
+
+
+def train_breakdown(prof, wall_ms):
+    """One profiled train step: device time by the three flash kernels,
+    GEMMs and the rest, and the device's idle share of the step's wall
+    time (unprofiled steps)."""
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return {"device_time": "not measured (profiler saw no CUDA events)"}
+    flash = ("fa_fwd_", "fa_dq_", "fa_dkv_")  # FMA and tensor-core kernels
+    groups = dict.fromkeys(flash + ("gemm", "rest"), 0.0)
+    by_name = {}
+    for e in events:
+        ms = e.time_range.elapsed_us() / 1e3
+        key = next((k for k in flash if k in e.name), None)
+        if key is None:
+            key = "gemm" if any(m in e.name for m in GEMM_MARKS) else "rest"
+        groups[key] += ms
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    busy = sum(groups.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # which PyTorch ops launched the device time (self time per op)
+    ops = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0 and not e.key.startswith(("void ", "nvjet", "sm90")):
+            ops.append((us / 1e3, e.key, e.count))
+    ops.sort(reverse=True)
+    return dict(device_busy_ms=busy, device_ops=len(events),
+                wall_ms=wall_ms, idle_share=1.0 - busy / wall_ms,
+                ms={k: v for k, v in groups.items()},
+                share={k: v / busy for k, v in groups.items()},
+                top=[dict(name=n[:90], ms=ms) for n, ms in top],
+                top_ops=[dict(op=k[:60], ms=ms, calls=c)
+                         for ms, k, c in ops[:12]])
+
+
+def phase_train(device, launches_of, reset_launches, cfg=None, batch=8,
+                seq=1024, n_warm=2, n_timed=10):
+    """GPT-3 1.3B width, 24 layers, O2, AdamW(1e-4, bf16 moments), seeded
+    random weights, batch 8 x 1024: 2 warm-up steps and 10 timed steps on
+    one batch through ``TrainStepper``, then one profiled step."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.core import random as rng
+    from paddle_tpu_torch.jit import TrainStepper
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+
+    cfg = cfg or train_config(24)
+    rng.seed(SEED)
+    model = GPTForCausalLM(cfg, device=device)
+    opt = optimizer.AdamW(1e-4, parameters=model.parameters(),
+                          moment_dtype="bfloat16")
+    stepper = TrainStepper(model, lambda out, lab: model.loss(out, lab[0]),
+                           opt, amp_level="O2")
+    x = (train_batch(device, batch, seq, cfg.vocab_size),)
+    n_tokens = x[0].numel()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(n_warm):
+        losses.append(stepper.step(x, x)[0].item())
+    reset_launches()
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        loss, _ = stepper.step(x, x)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    launches = launches_of()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    mean_ms = float(np.mean(step_ms))
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        stepper.step(x, x)
+        torch.cuda.synchronize()
+    breakdown = train_breakdown(prof, mean_ms)
+    want = {n: cfg.num_layers * n_timed for n in FLASH_KERNELS}
+    ok = (all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and launches == want)
+    emit("train", config="gpt3_1p3b", layers=cfg.num_layers, amp="O2",
+         optimizer="AdamW(1e-4, moments bf16)", batch=list(x[0].shape),
+         losses=losses, warmup_steps=n_warm, timed_steps=n_timed,
+         step_ms=step_ms, mean_step_ms=mean_ms,
+         tokens_per_s=n_tokens / (mean_ms / 1e3),
+         peak_device_memory_gb=peak, launches=launches,
+         launches_per_step={n: c / n_timed for n, c in launches.items()},
+         breakdown=breakdown, ok=ok)
+    if not ok:
+        raise AssertionError(f"train phase failed: losses {losses}, "
+                             f"launches {launches} (want {want})")
+    del stepper, opt, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def kernel_entry(name, source, replaces, launches, res, library_ms):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": library_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -549,30 +867,46 @@ def main() -> int:
     t0 = time.perf_counter()
     per_source = _build.build()
     emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=per_source,
-         ptxas=_build.ptxas_report("ragged_paged_attention"))
+         ptxas={src: _build.ptxas_report(src)
+                for src in _build.KERNEL_SOURCES})
 
     timer = Timer(device)
     kernel = phase_kernel(device, peaks, timer)
-    del timer
     cfg = gpt3_1p3b()
     weights = random_weights(cfg, cfg.num_layers, device)
     phase_model(device, cfg, weights)
     torch.cuda.empty_cache()
     model = build_model(cfg, weights, device, torch.bfloat16)
     del weights
-    launches = phase_serve(device, cfg, model, peaks, _build.launches,
-                           _build.reset_launches)
+    serve_launches = phase_serve(device, cfg, model, peaks, _build.launches,
+                                 _build.reset_launches)
     phase_prefix(device, cfg, model, _build.launches, _build.reset_launches)
+    del model
+    torch.cuda.empty_cache()
 
-    bf16 = kernel["bfloat16"]
-    print(json.dumps({"kernels": [{
-        "name": "ragged_paged_attention_chunked", "route": "cuda",
-        "source": "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
-        "replaces": "paddle_tpu/ops/pallas/ragged_paged_attention.py:228",
-        "launches": launches["ragged_paged_attention_chunked"],
-        "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"],
-        "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
-        "bound_by": bf16["bound_by"], "library_ms": None}]}), flush=True)
+    flash = phase_flash(device, peaks, timer)
+    del timer
+    torch.cuda.empty_cache()
+    phase_train_parity(device, _build.launches, _build.reset_launches)
+    train_launches = phase_train(device, _build.launches,
+                                 _build.reset_launches)
+
+    fa_src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
+    fa_ref = "paddle_tpu/ops/pallas/flash_attention.py"
+    entries = [kernel_entry(
+        "ragged_paged_attention_chunked",
+        "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
+        "paddle_tpu/ops/pallas/ragged_paged_attention.py:228",
+        serve_launches["ragged_paged_attention_chunked"],
+        kernel["bfloat16"], None)]
+    for kind, line in (("fwd", 162), ("dq", 277), ("dkv", 316)):
+        fa_name = f"flash_attention_{kind}"
+        library = (flash["library"]["sdpa_forward_ms"] if kind == "fwd"
+                   else None)
+        entries.append(kernel_entry(fa_name, fa_src, f"{fa_ref}:{line}",
+                                    train_launches[fa_name],
+                                    flash[(kind, "bfloat16")], library))
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

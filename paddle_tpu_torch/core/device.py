@@ -5,7 +5,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "canonical_device", "same_device"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -19,3 +19,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU explicitly")
     return dev
+
+
+def canonical_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` with a CUDA index filled in: ``"cuda"`` means the
+    current card, ``torch.cuda.current_device()``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def same_device(a: Union[str, torch.device],
+                b: Union[str, torch.device]) -> bool:
+    """Whether ``a`` and ``b`` name one device (``"cuda"`` and
+    ``"cuda:0"`` do when card 0 is current)."""
+    return canonical_device(a) == canonical_device(b)

@@ -1,0 +1,2 @@
+from .common import Dropout, Embedding, Linear  # noqa: F401
+from .norm import LayerNorm  # noqa: F401

@@ -41,13 +41,25 @@ import torch
 from . import _build
 
 __all__ = ["ragged_paged_attention_chunked",
-           "ragged_paged_attention_chunked_torch", "KERNEL_NAME"]
+           "ragged_paged_attention_chunked_torch", "check_kernel_geometry",
+           "KERNEL_NAME"]
 
 KERNEL_NAME = "ragged_paged_attention_chunked"
 _SOURCE = "ragged_paged_attention"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 _MAX_TQ = 8
+
+
+def check_kernel_geometry(head_dim: int, q_tile: int) -> None:
+    """Raise ``ValueError`` for a geometry the kernel does not take:
+    ``head_dim`` must be one of 32, 64, 128 and ``1 <= q_tile <= 8``."""
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"kernel supports head_dim {_HEAD_DIMS}, got "
+                         f"{head_dim}")
+    if not 1 <= q_tile <= _MAX_TQ:
+        raise ValueError(f"kernel supports q_tile <= {_MAX_TQ}, got "
+                         f"{q_tile}")
 
 
 def ragged_paged_attention_chunked_torch(q, k_pool, v_pool, seg_tables,
@@ -107,9 +119,6 @@ def _check_cuda_args(q, k_pool, v_pool, meta):
             or tuple(k_pool.shape[2:]) != tuple(q.shape[1:]):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pools "
                          f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
-    if q.shape[2] not in _HEAD_DIMS:
-        raise ValueError(f"kernel supports head_dim {_HEAD_DIMS}, got "
-                         f"{q.shape[2]}")
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -126,8 +135,7 @@ def _rpa_chunked_cuda(q, k_pool, v_pool, seg_tables, seg_pos, seg_rows,
         seg_tables=seg_tables, seg_pos=seg_pos, seg_rows=seg_rows,
         seg_row_idx=seg_row_idx))
     n_seg, tq = seg_row_idx.shape
-    if tq > _MAX_TQ:
-        raise ValueError(f"kernel supports q_tile <= {_MAX_TQ}, got {tq}")
+    check_kernel_geometry(q.shape[2], tq)
     if seg_tables.shape[0] != n_seg or seg_pos.shape != (n_seg,) \
             or seg_rows.shape != (n_seg,):
         raise ValueError("segment metadata disagree on the segment count")
@@ -137,12 +145,13 @@ def _rpa_chunked_cuda(q, k_pool, v_pool, seg_tables, seg_pos, seg_rows,
     if n_seg == 0:
         return out
     lib = _kernel_lib()
-    err = lib.rpa_chunked_launch(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        seg_tables.data_ptr(), seg_pos.data_ptr(), seg_rows.data_ptr(),
-        seg_row_idx.data_ptr(), out.data_ptr(), n_seg, h, d, block_size,
-        seg_tables.shape[1], tq, scale, _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):  # launch on q's card, not the current
+        err = lib.rpa_chunked_launch(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            seg_tables.data_ptr(), seg_pos.data_ptr(), seg_rows.data_ptr(),
+            seg_row_idx.data_ptr(), out.data_ptr(), n_seg, h, d, block_size,
+            seg_tables.shape[1], tq, scale, _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"{KERNEL_NAME} kernel launch failed: "

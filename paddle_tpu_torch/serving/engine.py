@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from .. import observability as _obs
-from ..core.device import resolve_device
+from ..core.device import resolve_device, same_device
+from ..ops.ragged_paged_attention import check_kernel_geometry
 from .kv_cache import PagedKVCache
 from .model import GPTServingModel
 from .prefix_cache import RadixPrefixCache
@@ -70,6 +71,13 @@ class EngineConfig:
     @property
     def max_model_len(self) -> int:
         return self.block_size * self.max_blocks_per_seq
+
+
+def kernel_route(device, attention: str) -> bool:
+    """Whether the engine's attention runs the CUDA kernel: ``"cuda"``
+    always, ``"auto"`` on a CUDA device."""
+    return attention == "cuda" or (attention == "auto"
+                                   and torch.device(device).type == "cuda")
 
 
 class _StepBatch(NamedTuple):
@@ -111,7 +119,7 @@ class Engine:
     def __init__(self, model: GPTServingModel, config: EngineConfig,
                  device=None):
         self.device = resolve_device(device)
-        if model.device != self.device:
+        if not same_device(model.device, self.device):
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}")
         if config.attention not in ("auto", "cuda", "torch"):
@@ -132,6 +140,9 @@ class Engine:
         self.model = model
         self.config = config
         self._tq = max(1, min(config.q_tile, config.token_budget))
+        if kernel_route(self.device, config.attention):
+            # refuse here what the kernel would refuse at the first step
+            check_kernel_geometry(model.head_dim, self._tq)
 
         shape = (config.num_blocks, config.block_size, model.n_heads,
                  model.head_dim)

@@ -133,3 +133,93 @@ def test_engine_kernel_path_matches_plain_path(card):
             assert steps == 0
         assert engine.kv.blocks_in_use == 0
     assert outs["cuda"] == outs["torch"]
+
+
+# ------------------------------------------------------- flash attention
+
+FLASH_CASES = [
+    # (bh, sq, sk, d, causal, dropout)
+    (2, 128, 128, 64, False, 0.0),
+    (3, 256, 256, 128, True, 0.0),
+    (2, 128, 384, 128, True, 0.0),    # causal offset sk - sq = 256
+    (2, 256, 128, 64, False, 0.0),    # sq > sk, non-causal
+    (2, 256, 256, 64, True, 0.3),     # causal dropout
+    (1, 192, 320, 128, False, 0.5),   # 64-multiples the gate would refuse
+]
+
+
+def flash_inputs(bh, sq, sk, d, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda s: torch.randn(bh, s, d, generator=g, device=device).to(dtype)
+    return r(sq), r(sk), r(sk), r(sq)
+
+
+def _close(got, want, dtype):
+    """Within TOL of the plain version, relative to max(1, max |plain|)."""
+    scale = max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert err <= TOL[dtype] * scale, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,d,causal,dropout", FLASH_CASES)
+def test_flash_kernels_match_plain(card, bh, sq, sk, d, causal, dropout,
+                                   dtype):
+    from paddle_tpu_torch.ops.flash_attention import (KERNEL_NAMES,
+                                                      flash_dkv, flash_dq,
+                                                      flash_fwd)
+
+    q, k, v, do = flash_inputs(bh, sq, sk, d, dtype, card, seed=sq + d)
+    args = (causal, 1.0 / d ** 0.5, dropout, 99)
+    _build.reset_launches()
+    out, lse = flash_fwd(q, k, v, *args)
+    want_out, want_lse = flash_fwd(q, k, v, *args, impl="torch")
+    _close(out, want_out, dtype)
+    _close(lse, want_lse, torch.float32)
+    delta = (do.float() * want_out.float()).sum(-1)
+    _close(flash_dq(q, k, v, do, want_lse, delta, *args),
+           flash_dq(q, k, v, do, want_lse, delta, *args, impl="torch"),
+           dtype)
+    got = flash_dkv(q, k, v, do, want_lse, delta, *args)
+    want = flash_dkv(q, k, v, do, want_lse, delta, *args, impl="torch")
+    for a, b in zip(got, want):
+        _close(a, b, dtype)
+    torch.cuda.synchronize()
+    assert _build.launches() == {name: 1 for name in KERNEL_NAMES}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_runs_the_kernels(card, dtype):
+    from paddle_tpu_torch.ops.flash_attention import (KERNEL_NAMES,
+                                                      flash_attention)
+
+    g = torch.Generator(device=card).manual_seed(3)
+    x = [torch.randn(2, 256, 4, 48, generator=g, device=card).to(dtype)
+         .requires_grad_(True) for _ in range(3)]
+    grads = {}
+    for impl in ("cuda", "torch"):
+        _build.reset_launches()
+        out = flash_attention(*x, causal=True, impl=impl)
+        grads[impl] = torch.autograd.grad(out.square().sum(), x)
+        counts = _build.launches()
+        assert counts == ({n: 1 for n in KERNEL_NAMES} if impl == "cuda"
+                          else {})
+    for a, b in zip(grads["cuda"], grads["torch"]):
+        _close(a, b, dtype)
+
+
+def test_flash_kernels_reject_what_they_do_not_take(card):
+    from paddle_tpu_torch.ops.flash_attention import flash_fwd
+
+    q, k, v, _ = flash_inputs(1, 128, 128, 64, torch.float32, card, 0)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                  v[..., :32].contiguous(), False, 0.125)
+    with pytest.raises(ValueError, match="float32 and bfloat16"):
+        flash_fwd(q.half(), k.half(), v.half(), False, 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                  False, 0.125)
+    with pytest.raises(ValueError, match="multiples"):
+        flash_fwd(q[:, :96].contiguous(), k, v, False, 0.125)

@@ -194,6 +194,58 @@ def test_token_step_matches_jax(jax_model, port_model, segs, n_pad, tq):
                                    atol=1e-5)
 
 
+@pytest.mark.parametrize("segs,n_pad,tq", TOKEN_STEP_CASES)
+def test_token_step_bf16_matches_jax(jax_model, segs, n_pad, tq):
+    """bf16 weights and pools on both sides (RoPE tables fp32). The two
+    round in different places: the reference keeps RoPE output, q and
+    (by promotion) the residual stream after the first attention in fp32;
+    the port keeps them bf16 and runs LayerNorm as one fused op. Logits
+    agree within 3e-2 x max |logit| (a few bf16 roundings of 2**-8 each
+    between the embedding and the head); the same pool rows are written,
+    within 2e-2 x max |K/V|."""
+    params = numpy_params(jax_model)
+    jax_params = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, jnp.bfloat16), params)
+    jax_params["rope_cos"] = jnp.asarray(params["rope_cos"])
+    jax_params["rope_sin"] = jnp.asarray(params["rope_sin"])
+    p = params_from_jax(params, device="cpu", dtype=torch.bfloat16)
+    model = GPTServingModel(p["embedding"], p["head"], p["layers"],
+                            n_heads=HEADS, head_dim=HDIM, use_rope=True,
+                            max_position=64, device="cpu")
+    pools, step, n_live = packed_inputs(segs, n_pad, tq, block_size=4,
+                                        maxb=16, num_blocks=80, seed=n_pad)
+    pools = [p.astype(jnp.bfloat16) for p in pools]
+    active = np.arange(len(step[0])) < n_live
+    jax_step = jax.jit(jax_model.token_step,
+                       static_argnames=("attn_impl", "axis_name"))
+    jk, jv, jlogits = jax_step(
+        jax_params, [jnp.asarray(p) for p in pools[:N_LAYERS]],
+        [jnp.asarray(p) for p in pools[N_LAYERS:]],
+        *[jnp.asarray(a) for a in step], jnp.asarray(active),
+        attn_impl="xla")
+    as_torch = lambda a: torch.from_numpy(a.astype(np.float32)).bfloat16()
+    tk = [as_torch(p) for p in pools[:N_LAYERS]]
+    tv = [as_torch(p) for p in pools[N_LAYERS:]]
+    logits = model.token_step(tk, tv, *[torch.from_numpy(a) for a in step],
+                              n_active=n_live).numpy()
+    want = np.asarray(jlogits, np.float32)
+    assert logits.shape == want.shape == (len(step[0]), VOCAB)
+    scale = np.abs(want).max()
+    ratio = np.abs(logits - want).max() / scale
+    print(f"bf16 token_step vs JAX: max |diff| / max |logit| = {ratio:.3e}")
+    assert ratio <= 3e-2
+    for got_pool, want_pool, before in zip(tk + tv, list(jk) + list(jv),
+                                           pools):
+        got_pool = got_pool.float().numpy()
+        want_pool = np.asarray(want_pool, np.float32)
+        before = before.astype(np.float32)
+        # written token slots: any of the slot's H x D values changed
+        written = lambda pool: (pool != before).any(axis=(-2, -1))
+        np.testing.assert_array_equal(written(got_pool), written(want_pool))
+        assert np.abs(got_pool - want_pool).max() \
+            <= 2e-2 * np.abs(want_pool).max()
+
+
 # ------------------------------------------------------------- the engine
 
 DRILL_PROMPTS = [
@@ -713,7 +765,10 @@ def test_params_from_jax_round_trip(jax_model, port_model):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.ops, paddle_tpu_torch.text.models\n"
+            "paddle_tpu_torch.ops, paddle_tpu_torch.text.models, "
+            "paddle_tpu_torch.jit, paddle_tpu_torch.optimizer, "
+            "paddle_tpu_torch.nn, paddle_tpu_torch.amp, "
+            "paddle_tpu_torch.text.models.gpt\n"
             "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu') "
             "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.'))]\n"
             "assert not bad, bad\n")
@@ -741,3 +796,53 @@ def test_no_quiet_cpu_fallback(jax_model, port_model):
         Engine(port_model, EngineConfig(**ENGINE_CFG))
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax(params)
+
+
+def test_engine_refuses_kernel_geometry_at_construction(port_model):
+    """When the engine's attention is the kernel's (``"cuda"``, or
+    ``"auto"`` on a card), a head_dim or q_tile the kernel does not take
+    raises in ``Engine.__init__``, not at the first step. The plain route
+    takes any geometry."""
+    from paddle_tpu_torch.serving.engine import kernel_route
+
+    assert kernel_route("cuda", "auto") and kernel_route("cuda:1", "cuda")
+    assert kernel_route("cpu", "cuda")
+    assert not kernel_route("cpu", "auto")
+    assert not kernel_route("cuda", "torch")
+    with pytest.raises(ValueError, match="head_dim"):  # HDIM = 16
+        Engine(port_model, EngineConfig(**dict(ENGINE_CFG,
+                                               attention="cuda")),
+               device="cpu")
+    rs = np.random.RandomState(0)
+    e, d = 64, 32
+    layer = dict(ln_scale=np.ones(e, np.float32),
+                 ln_bias=np.zeros(e, np.float32),
+                 qkv_w=rs.randn(3, 2, d, e).astype(np.float32),
+                 out_w=rs.randn(e, e).astype(np.float32),
+                 ffn_ln_scale=np.ones(e, np.float32),
+                 ffn_ln_bias=np.zeros(e, np.float32),
+                 ffn1_w=rs.randn(e, 64).astype(np.float32),
+                 ffn2_w=rs.randn(64, e).astype(np.float32))
+    model = GPTServingModel(rs.randn(VOCAB, e).astype(np.float32),
+                            rs.randn(e, VOCAB).astype(np.float32), [layer],
+                            n_heads=2, head_dim=d, max_position=64,
+                            device="cpu")
+    cfg = dict(ENGINE_CFG, token_budget=16, attention="cuda")
+    with pytest.raises(ValueError, match="q_tile"):
+        Engine(model, EngineConfig(**dict(cfg, q_tile=16)), device="cpu")
+    Engine(model, EngineConfig(**dict(cfg, q_tile=8)), device="cpu")
+    Engine(port_model, EngineConfig(**ENGINE_CFG), device="cpu")
+
+
+def test_same_device_resolves_the_current_card(monkeypatch):
+    """``"cuda"`` is the current card: equal to ``"cuda:<current>"`` and
+    to no other index."""
+    from paddle_tpu_torch.core.device import canonical_device, same_device
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert canonical_device("cuda") == torch.device("cuda", 1)
+    assert same_device("cuda", "cuda:1")
+    assert same_device(torch.device("cuda"), torch.device("cuda", 1))
+    assert not same_device("cuda", "cuda:0")
+    assert same_device("cpu", torch.device("cpu"))
+    assert not same_device("cpu", "cuda:1")
