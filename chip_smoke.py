@@ -31,17 +31,26 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 7. ``flash`` — the three flash-attention kernels (forward, dQ, dK/dV)
    against their plain PyTorch versions at the training path's shapes
    (BH=128, S=1024, D=128, causal) in fp32 and bf16, plus a bf16 dropout
-   case: max abs error against the tolerance, median times over >= 20
+   case: max abs error and relative norm error against their limits,
+   median times over >= 20
    launches with the L2 cache flushed, bytes, operations and the bound;
    ``flash_library`` times torch's scaled_dot_product_attention forward
    and backward on the same bf16 inputs as the yardstick.
-8. ``train_parity`` — GPT-3 1.3B width at 2 layers in fp32: one forward
-   and backward through the attention kernels and one through their plain
-   versions; the loss and every gradient must agree.
-9. ``train`` — the training path: ``TrainStepper`` over the 24-layer GPT
+8. ``xent`` — the two fused softmax cross-entropy kernels (forward,
+   backward) against their plain PyTorch versions at the training path's
+   shapes (8 x 1024 rows, V=50304) in fp32 and bf16: errors against the
+   limits, median times with the L2 cache flushed, bytes, operations and
+   the bound; torch's ``cross_entropy`` (per-row losses) as the
+   forward's yardstick.
+9. ``train_parity`` — GPT-3 1.3B width at 2 layers in fp32: one forward
+   and backward through the kernels (attention and cross-entropy) and
+   one through their plain versions; the loss and every gradient must
+   agree.
+10. ``train`` — the training path: ``TrainStepper`` over the 24-layer GPT
    at GPT-3 1.3B width, O2, AdamW, batch 8 x 1024 on one seeded batch:
    2 warm-up and 10 timed steps, then one profiled step. The loss must
-   fall, and each flash kernel must launch 24 times per step.
+   fall, each flash kernel must launch 24 times per step and each
+   cross-entropy kernel once.
 
 Then one line listing every ported kernel with its numbers, and last
 ``{"ok": true, "device": {...}}``. Any failure raises, and the script exits
@@ -49,10 +58,12 @@ non-zero without printing the last line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -538,7 +549,35 @@ def phase_prefix(device, cfg, model, launches_of, reset_launches):
 
 # --------------------------------------------------- flash attention
 
-FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # x max(1, |plain|)
+# Every element within TOL x max(1, max |plain|), and ||got - plain|| /
+# ||plain|| within REL_TOL: a few times what a right kernel reads at bf16
+# (single elements rounded to the neighbouring bf16 value) and far below
+# what a kernel that skips one tile reads (tests/test_torch_cuda_kernels.py
+# test_flash_limits_reject_a_kernel_that_skips_a_tile).
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def rel_err(got, want) -> float:
+    """``||got - want|| / ||want||`` over all elements, in fp32."""
+    diff = (got.float() - want.float()).norm()
+    return (diff / want.float().norm().clamp_min(1e-30)).item()
+
+
+def agreement(what: str, got, want):
+    """Max abs error and relative norm error of ``got`` against its plain
+    version ``want``; raises past either limit (of ``want``'s dtype) or on
+    a non-finite value."""
+    err = (got.float() - want.float()).abs().max().item()
+    rel = rel_err(got, want)
+    lim = TOL[want.dtype] * max(1.0, want.float().abs().max().item())
+    if not (err <= lim and rel <= REL_TOL[want.dtype]
+            and torch.isfinite(got).all().item()):
+        raise AssertionError(
+            f"{what} disagrees with its plain version: max abs err {err} "
+            f"(limit {lim}), relative norm err {rel} (limit "
+            f"{REL_TOL[want.dtype]})")
+    return err, rel
 
 
 def causal_pairs(sq: int, sk: int, causal: bool) -> int:
@@ -611,18 +650,12 @@ def phase_flash(device, peaks, timer, batch=8, heads=16, s=1024, d=128):
             if torch.is_tensor(got):
                 got, want = (got,), (want,)
             torch.cuda.synchronize()
-            errs = []
-            for a, b in zip(got, want):
-                err = (a.float() - b.float()).abs().max().item()
-                lim = FLASH_TOL[a.dtype] * max(1.0,
-                                               b.float().abs().max().item())
-                if not (err <= lim and torch.isfinite(a).all().item()):
-                    raise AssertionError(
-                        f"flash {kind} ({tag}) disagrees with its plain "
-                        f"version: max abs err {err} > {lim}")
-                errs.append(err)
-            res = dict(kind=kind, case=tag, max_abs_err=max(errs),
-                       tol=FLASH_TOL[dtype], bh=bh, seq=s, head_dim=d,
+            errs = [agreement(f"flash {kind} ({tag})", a, b)
+                    for a, b in zip(got, want)]
+            res = dict(kind=kind, case=tag,
+                       max_abs_err=max(e for e, _ in errs),
+                       rel_err=max(r for _, r in errs), tol=TOL[dtype],
+                       rel_tol=REL_TOL[dtype], bh=bh, seq=s, head_dim=d,
                        causal=causal, dropout=dropout)
             if not dropout:
                 res.update(ms=timer.median_ms(lambda: call("cuda")),
@@ -658,6 +691,66 @@ def sdpa_yardstick(q, k, v, do, timer, batch):
                 sdpa_backward_ms=timer.median_ms(bwd))
 
 
+# ------------------------------------------------ softmax cross-entropy
+
+def xent_work(kind: str, n: int, v: int, elem: int):
+    """Bytes each kernel must move (the logits read once; labels int64,
+    loss, lse and the upstream gradient once; dz written once) and its
+    fp32 operations (4 a logit: max, subtract, exp, add forward; subtract,
+    exp, subtract, multiply backward)."""
+    logits = n * v * elem
+    n_bytes = {"fwd": logits + n * (8 + 4 + 4),
+               "bwd": 2 * logits + n * (8 + 4 + 4)}[kind]
+    return n_bytes, 4 * n * v
+
+
+def phase_xent(device, peaks, timer, n=8 * 1024, v=50304):
+    """The fused softmax cross-entropy kernels against their plain
+    versions at the training path's shapes (8 x 1024 rows of the 50304
+    vocabulary), fp32 and bf16; median times with the L2 cache flushed;
+    torch's cross_entropy (per-row losses) as the forward's yardstick."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.ops.softmax_xent import xent_bwd, xent_fwd
+
+    g = torch.Generator(device=device).manual_seed(SEED + 7)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        z = (torch.randn(n, v, generator=g, device=device) * 2).to(dtype)
+        labels = torch.randint(0, v, (n,), generator=g, device=device)
+        grad = torch.full((n,), 1.0 / n, device=device)  # a mean's
+        _, lse = xent_fwd(z, labels, impl="torch")
+        calls = {
+            "fwd": lambda impl: xent_fwd(z, labels, impl=impl),
+            "bwd": lambda impl: xent_bwd(z, labels, lse, grad, impl=impl),
+        }
+        tag = str(dtype).replace("torch.", "")
+        for kind, call in calls.items():
+            got, want = call("cuda"), call("torch")
+            if torch.is_tensor(got):
+                got, want = (got,), (want,)
+            torch.cuda.synchronize()
+            errs = [agreement(f"softmax_xent {kind} ({tag})", a, b)
+                    for a, b in zip(got, want)]
+            library = None
+            if kind == "fwd":
+                library = timer.median_ms(lambda: TF.cross_entropy(
+                    z, labels, reduction="none"))
+            res = dict(kind=kind, case=tag,
+                       max_abs_err=max(e for e, _ in errs),
+                       rel_err=max(r for _, r in errs),
+                       rel_tol=REL_TOL[want[-1].dtype], rows=n, vocab=v,
+                       ms=timer.median_ms(lambda: call("cuda")),
+                       plain_ms=timer.median_ms(lambda: call("torch")),
+                       library_ms=library,
+                       **bound_of(*xent_work(kind, n, v, z.element_size()),
+                                  torch.float32, peaks))
+            emit("xent", name=f"softmax_xent_{kind}", **res)
+            results[(kind, tag)] = res
+        del z, labels, grad, lse
+        torch.cuda.empty_cache()
+    return results
+
+
 # ------------------------------------------------------------ training
 
 def train_config(n_layers: int):
@@ -676,11 +769,22 @@ def train_batch(device, batch=8, seq=1024, vocab=50304):
     return torch.randint(0, vocab, (batch, seq), generator=g, device=device)
 
 
+@contextlib.contextmanager
+def route(impl: str):
+    """Every kernel entry point of the training path (flash attention,
+    softmax cross-entropy) runs ``impl``: "cuda" (the kernels) or "torch"
+    (their plain versions)."""
+    from paddle_tpu_torch.ops import _build
+
+    with mock.patch.object(_build, "pick_impl", lambda _, t: impl):
+        yield
+
+
 def phase_train_parity(device, launches_of, reset_launches, cfg=None,
                        batch=8, seq=1024):
     """Full width at 2 layers, fp32: the same weights and batch through
-    the kernel route and the plain route of attention; the loss and every
-    gradient must agree."""
+    the kernel route and the plain route of attention and cross-entropy;
+    the loss and every gradient must agree."""
     from paddle_tpu_torch.core import random as rng
     from paddle_tpu_torch.text.models import GPTForCausalLM
 
@@ -691,12 +795,11 @@ def phase_train_parity(device, launches_of, reset_launches, cfg=None,
     model = GPTForCausalLM(cfg, device=device)
     grads, losses, counts = {}, {}, {}
     for impl in ("cuda", "torch"):
-        for blk in model.gpt.blocks:
-            blk.attn.attn_impl = impl
         model.zero_grad(set_to_none=True)
         reset_launches()
-        loss = model.loss(model(ids), ids)
-        loss.backward()
+        with route(impl):
+            loss = model.loss(model(ids), ids)
+            loss.backward()
         torch.cuda.synchronize()
         counts[impl] = launches_of()
         losses[impl] = loss.item()
@@ -719,7 +822,8 @@ def phase_train_parity(device, launches_of, reset_launches, cfg=None,
         rel[n] = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
     worst = max((v, n) for n, v in rel.items())
     loss_rel = abs(losses["cuda"] - losses["torch"]) / abs(losses["torch"])
-    want_counts = {n: cfg.num_layers for n in FLASH_KERNELS}
+    want_counts = dict({n: cfg.num_layers for n in FLASH_KERNELS},
+                       **{n: 1 for n in XENT_KERNELS})
     ok = (loss_rel <= 1e-5 and worst[0] <= 1e-4
           and counts["cuda"] == want_counts and counts["torch"] == {}
           and k_bias_rel <= 1e-4)
@@ -738,18 +842,20 @@ def phase_train_parity(device, launches_of, reset_launches, cfg=None,
 
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
                  "flash_attention_dkv")
+XENT_KERNELS = ("softmax_xent_fwd", "softmax_xent_bwd")
 GEMM_MARKS = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "nvjet", "cublas")
 
 
 def train_breakdown(prof, wall_ms):
     """One profiled train step: device time by the three flash kernels,
-    GEMMs and the rest, and the device's idle share of the step's wall
-    time (unprofiled steps)."""
+    the two cross-entropy kernels, GEMMs and the rest, and the device's
+    idle share of the step's wall time (unprofiled steps)."""
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
         return {"device_time": "not measured (profiler saw no CUDA events)"}
     flash = ("fa_fwd_", "fa_dq_", "fa_dkv_")  # FMA and tensor-core kernels
+    flash += ("xent_fwd_", "xent_bwd_")
     groups = dict.fromkeys(flash + ("gemm", "rest"), 0.0)
     by_name = {}
     for e in events:
@@ -782,7 +888,9 @@ def phase_train(device, launches_of, reset_launches, cfg=None, batch=8,
                 seq=1024, n_warm=2, n_timed=10):
     """GPT-3 1.3B width, 24 layers, O2, AdamW(1e-4, bf16 moments), seeded
     random weights, batch 8 x 1024: 2 warm-up steps and 10 timed steps on
-    one batch through ``TrainStepper``, then one profiled step."""
+    one batch through ``TrainStepper``, then one profiled step. Each flash
+    kernel must launch once a layer a step, each cross-entropy kernel once
+    a step."""
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.core import random as rng
     from paddle_tpu_torch.jit import TrainStepper
@@ -819,7 +927,8 @@ def phase_train(device, launches_of, reset_launches, cfg=None, batch=8,
         stepper.step(x, x)
         torch.cuda.synchronize()
     breakdown = train_breakdown(prof, mean_ms)
-    want = {n: cfg.num_layers * n_timed for n in FLASH_KERNELS}
+    want = dict({n: cfg.num_layers * n_timed for n in FLASH_KERNELS},
+                **{n: n_timed for n in XENT_KERNELS})
     ok = (all(np.isfinite(losses)) and losses[-1] < losses[0]
           and launches == want)
     emit("train", config="gpt3_1p3b", layers=cfg.num_layers, amp="O2",
@@ -885,6 +994,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     flash = phase_flash(device, peaks, timer)
+    xent = phase_xent(device, peaks, timer)
     del timer
     torch.cuda.empty_cache()
     phase_train_parity(device, _build.launches, _build.reset_launches)
@@ -906,6 +1016,13 @@ def main() -> int:
         entries.append(kernel_entry(fa_name, fa_src, f"{fa_ref}:{line}",
                                     train_launches[fa_name],
                                     flash[(kind, "bfloat16")], library))
+    for kind, line in (("fwd", 59), ("bwd", 97)):
+        xent_name = f"softmax_xent_{kind}"
+        res = xent[(kind, "bfloat16")]
+        entries.append(kernel_entry(
+            xent_name, "paddle_tpu_torch/ops/csrc/softmax_xent.cu",
+            f"paddle_tpu/ops/pallas/softmax_xent.py:{line}",
+            train_launches[xent_name], res, res["library_ms"]))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -4,10 +4,10 @@ The reference casts at op dispatch (``paddle_tpu/ops/_dispatch.py``
 ``_amp_cast``, lists in ``paddle_tpu/core/amp_state.py``): under O2 every
 op that is not on the black list runs with its fp32 inputs cast to the low
 dtype, and black-list ops (LayerNorm, cross-entropy, softmax, the
-reductions) run with low-precision inputs cast back to fp32; under O1 only
-white-list ops cast down. Parameters stay fp32 masters: the casts happen
-on the way into each op, so gradients reach the fp32 parameters through
-them.
+reductions) run with low-precision inputs cast back to fp32. O1 (only
+white-list ops cast down) is not ported. Parameters stay fp32 masters:
+the casts happen on the way into each op, so gradients reach the fp32
+parameters through them.
 
 ``torch.autocast`` is a different rule (it keeps residual adds and
 elementwise ops in fp32, for one), so the port's layers call :func:`cast`
@@ -20,13 +20,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["auto_cast", "cast", "is_enabled", "WHITE_LIST", "BLACK_LIST"]
+__all__ = ["auto_cast", "cast", "is_enabled", "BLACK_LIST"]
 
-WHITE_LIST = frozenset({
-    "matmul", "linear", "conv1d", "conv2d", "conv3d", "conv1d_transpose",
-    "conv2d_transpose", "conv3d_transpose", "einsum", "mv", "bmm", "mm",
-    "sdpa", "flash_attention",
-})
 BLACK_LIST = frozenset({
     "exp", "log", "log2", "log10", "log1p", "pow", "square", "cross_entropy",
     "fused_softmax_xent", "softmax_with_cross_entropy", "mean", "sum",
@@ -34,7 +29,7 @@ BLACK_LIST = frozenset({
     "batch_norm", "rms_norm",
 })
 
-_LEVEL: Optional[str] = None  # None = off, "O1" or "O2"
+_LEVEL: Optional[str] = None  # None = off, or "O2"
 _DTYPE = torch.bfloat16
 
 
@@ -47,8 +42,8 @@ def auto_cast(level: Optional[str] = "O2", dtype=torch.bfloat16):
     """Run the enclosed ops under the reference's AMP rule (``level`` None
     turns it off)."""
     global _LEVEL, _DTYPE
-    if level not in (None, "O1", "O2"):
-        raise ValueError(f"amp level must be None, O1 or O2, got {level!r}")
+    if level not in (None, "O2"):
+        raise ValueError(f"amp level must be None or O2, got {level!r}")
     prev = (_LEVEL, _DTYPE)
     _LEVEL, _DTYPE = level, dtype
     try:
@@ -64,11 +59,10 @@ def cast(op_name: str, *tensors):
         return tensors
     low = _DTYPE
     in_black = op_name in BLACK_LIST
-    cast_low = (not in_black) if _LEVEL == "O2" else op_name in WHITE_LIST
     out = []
     for t in tensors:
         if t is not None:
-            if cast_low and t.dtype == torch.float32:
+            if not in_black and t.dtype == torch.float32:
                 t = t.to(low)
             elif in_black and t.dtype == low:
                 t = t.float()

@@ -6,7 +6,8 @@ returns ``(loss, outputs)``, as the reference's does. The reference traces
 all of it into one XLA program; the port runs it eagerly, the attention
 forward and backward through the hand-written kernels.
 
-As in the reference, ``amp_level="O2"`` runs the *forward* under the AMP
+``amp_level`` is None or "O2" (O1 is not ported and raises). As in the
+reference, ``amp_level="O2"`` runs the *forward* under the AMP
 rule (``paddle_tpu_torch.amp``, bf16) with fp32 master parameters, and
 ``loss_fn`` runs after it, outside the AMP scope, on the forward's
 outputs as they come (bf16 logits under O2); the loss is returned as
@@ -44,8 +45,11 @@ class TrainStepper:
             raise NotImplementedError(
                 f"TrainStepper options not ported to paddle_tpu_torch: "
                 f"{', '.join(left_out)}")
-        if amp_level not in (None, "O1", "O2"):
-            raise ValueError(f"amp_level must be None, O1 or O2, got "
+        if amp_level == "O1":
+            raise NotImplementedError("amp_level O1 is not ported to "
+                                      "paddle_tpu_torch")
+        if amp_level not in (None, "O2"):
+            raise ValueError(f"amp_level must be None or O2, got "
                              f"{amp_level!r}")
         self.layer = layer
         self.loss_fn = loss_fn

@@ -61,18 +61,15 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
                                  training: bool = True,
-                                 scale: Optional[float] = None,
-                                 impl: str = "auto"):
-    """Attention on paddle-layout ``[batch, seq, heads, head_dim]``.
-    ``impl`` ("auto", "cuda", "torch") is handed to the flash route, for
-    comparing the kernels with their plain versions."""
+                                 scale: Optional[float] = None):
+    """Attention on paddle-layout ``[batch, seq, heads, head_dim]``."""
     eff_dropout = dropout_p if training else 0.0
     if would_use_flash(query.shape[1], key.shape[1], query.shape[-1],
                        causal=is_causal, has_mask=attn_mask is not None):
         q, k, v = amp.cast("flash_attention", query, key, value)
         seed = rng.next_seed(q.device) if eff_dropout > 0.0 else None
         return flash_attention(q, k, v, causal=is_causal, scale=scale,
-                               dropout=eff_dropout, seed=seed, impl=impl)
+                               dropout=eff_dropout, seed=seed)
     q, k, v, m = amp.cast("sdpa", query, key, value, attn_mask)
     return _sdpa_reference(q, k, v, m, dropout_p, is_causal, scale,
                            training)

@@ -25,13 +25,13 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 __all__ = ["build", "load", "ptxas_report", "count_launch", "launches",
-           "reset_launches", "KERNEL_SOURCES"]
+           "reset_launches", "pick_impl", "KERNEL_SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("ragged_paged_attention", "flash_attention")
+KERNEL_SOURCES = ("ragged_paged_attention", "flash_attention", "softmax_xent")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -49,6 +49,18 @@ def launches() -> Dict[str, int]:
 
 def reset_launches() -> None:
     _LAUNCHES.clear()
+
+
+def pick_impl(impl: str, t) -> str:
+    """The route a kernel entry point takes for tensor ``t``: ``impl``
+    "cuda" (the kernel) or "torch" (its plain version), or for "auto" the
+    kernel on a CUDA tensor and the plain version on a CPU tensor.
+    Comparisons of the two routes replace this function."""
+    if impl not in ("auto", "cuda", "torch"):
+        raise ValueError(f"impl must be auto|cuda|torch, got {impl!r}")
+    if impl == "auto":
+        return "cuda" if t.is_cuda else "torch"
+    return impl
 
 
 def _nvcc() -> str:

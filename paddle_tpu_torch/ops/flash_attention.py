@@ -25,8 +25,8 @@ Semantics, all as the reference's:
 
 Each entry point (:func:`flash_fwd`, :func:`flash_dq`, :func:`flash_dkv`)
 picks by the device of its tensors: on a CUDA tensor it launches the
-kernel or raises, on a CPU tensor it runs the plain version (``impl``
-forces one, for comparisons). Nothing falls back.
+kernel or raises, on a CPU tensor it runs the plain version (their
+``impl`` forces one, for comparisons). Nothing falls back.
 """
 from __future__ import annotations
 
@@ -235,19 +235,11 @@ def _launch(name: str, fn, args, q, k, causal, scale, dropout, seed):
     _build.count_launch(name)
 
 
-def _impl(impl: str, q) -> str:
-    if impl not in ("auto", "cuda", "torch"):
-        raise ValueError(f"impl must be auto|cuda|torch, got {impl!r}")
-    if impl == "auto":
-        return "cuda" if q.is_cuda else "torch"
-    return impl
-
-
 def flash_fwd(q, k, v, causal: bool, scale: float, dropout: float = 0.0,
               seed: int = 0, impl: str = "auto"):
     """Forward on ``[BH, S, D]`` (D 64 or 128 on the card): ``(out,
     lse)``."""
-    if _impl(impl, q) == "torch":
+    if _build.pick_impl(impl, q) == "torch":
         return flash_fwd_torch(q, k, v, causal, scale, dropout, seed)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
@@ -260,7 +252,7 @@ def flash_fwd(q, k, v, causal: bool, scale: float, dropout: float = 0.0,
 
 def flash_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
              dropout: float = 0.0, seed: int = 0, impl: str = "auto"):
-    if _impl(impl, q) == "torch":
+    if _build.pick_impl(impl, q) == "torch":
         return flash_dq_torch(q, k, v, do, lse, delta, causal, scale,
                               dropout, seed)
     dq = torch.empty_like(q)
@@ -274,7 +266,7 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
 
 def flash_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
               dropout: float = 0.0, seed: int = 0, impl: str = "auto"):
-    if _impl(impl, q) == "torch":
+    if _build.pick_impl(impl, q) == "torch":
         return flash_dkv_torch(q, k, v, do, lse, delta, causal, scale,
                                dropout, seed)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -294,10 +286,10 @@ class _FlashBHSD(torch.autograd.Function):
     kernels (the reference's ``jax.custom_vjp``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, dropout, seed, impl):
-        out, lse = flash_fwd(q, k, v, causal, scale, dropout, seed, impl)
+    def forward(ctx, q, k, v, causal, scale, dropout, seed):
+        out, lse = flash_fwd(q, k, v, causal, scale, dropout, seed)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, scale, dropout, seed, impl)
+        ctx.args = (causal, scale, dropout, seed)
         return out
 
     @staticmethod
@@ -307,12 +299,12 @@ class _FlashBHSD(torch.autograd.Function):
         delta = (do.float() * out.float()).sum(dim=-1)
         dq = flash_dq(q, k, v, do, lse, delta, *ctx.args)
         dk, dv = flash_dkv(q, k, v, do, lse, delta, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None, dropout: float = 0.0,
-                    seed: Optional[int] = None, impl: str = "auto"):
+                    seed: Optional[int] = None):
     """Flash attention on paddle-layout inputs ``[B, S, H, D]``.
 
     ``dropout`` drops attention probabilities inside the kernels, the mask
@@ -336,7 +328,7 @@ def flash_attention(q, k, v, causal: bool = False,
         return x.contiguous()
 
     out = _FlashBHSD.apply(fold(q), fold(k), fold(v), bool(causal),
-                           float(scale), float(dropout), int(seed), impl)
+                           float(scale), float(dropout), int(seed))
     if dpad:
         out = out[..., :d]
     return out.reshape(b, h, s, d).transpose(1, 2)

@@ -53,17 +53,29 @@ def make_rope_tables(max_position: int, head_dim: int,
 
 def _rope(x, cos, sin):
     """Rotate-half on ``x [T, H, D]`` with per-row tables ``[T, D//2]``:
-    ``out_l = l*cos - r*sin``, ``out_r = r*cos + l*sin``, in float32."""
+    ``out_l = l*cos - r*sin``, ``out_r = r*cos + l*sin``. The result stays
+    float32, as the reference's does (its fp32 tables promote it); k is
+    cast to the pool's dtype where it is written, q where it enters the
+    attention kernel."""
     half = x.shape[-1] // 2
     c = cos[:, None, :]
     s = sin[:, None, :]
     xf = x.float()
     l, r = xf[..., :half], xf[..., half:]
-    return torch.cat([l * c - r * s, r * c + l * s], dim=-1).to(x.dtype)
+    return torch.cat([l * c - r * s, r * c + l * s], dim=-1)
 
 
 def _layer_norm(x, scale, bias, eps: float):
-    return F.layer_norm(x, x.shape[-1:], scale, bias, eps)
+    """LayerNorm written out as the reference writes it: mean, variance
+    and the normalisation in the activation dtype (bf16 when serving in
+    bf16), each op rounding to it."""
+    xm = x - x.mean(dim=-1, keepdim=True)
+    y = xm * torch.rsqrt(xm.square().mean(dim=-1, keepdim=True) + eps)
+    if scale is not None:
+        y = y * scale
+    if bias is not None:
+        y = y + bias
+    return y
 
 
 class _DecoderLayer(nn.Module):
@@ -199,6 +211,8 @@ class GPTServingModel(nn.Module):
                 0, write_idx, k[:n_live].to(kp.dtype))
             vp.view(pool_rows, n_heads, head_dim).index_copy_(
                 0, write_idx, v[:n_live].to(vp.dtype))
+            # the kernel takes q in the pools' dtype; the reference hands
+            # its fp32 q to attention as it is
             attn = ragged_paged_attention_chunked(
                 q.to(kp.dtype).contiguous(), kp, vp, seg_tables, seg_pos,
                 seg_rows, seg_row_idx, row_gather,

@@ -66,9 +66,6 @@ def _check_ported(cfg: GPTConfig) -> None:
 
 
 class GPTAttention(nn.Module):
-    """``attn_impl`` ("auto", "cuda" or "torch") is handed to the flash
-    route; comparisons set it to run the kernels' plain versions."""
-
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
         d = cfg.hidden_size
@@ -77,7 +74,6 @@ class GPTAttention(nn.Module):
         self.qkv = Linear(d, 3 * d, device=device)
         self.proj = Linear(d, d, device=device)
         self.dropout = Dropout(cfg.dropout)
-        self.attn_impl = "auto"
 
     def forward(self, x):
         b, s, e = x.shape
@@ -85,7 +81,7 @@ class GPTAttention(nn.Module):
         shape = (b, s, self.num_heads, self.head_dim)
         out = F.scaled_dot_product_attention(
             q.reshape(shape), k.reshape(shape), v.reshape(shape),
-            is_causal=True, training=self.training, impl=self.attn_impl)
+            is_causal=True, training=self.training)
         return self.dropout(self.proj(out.reshape(b, s, e)))
 
 

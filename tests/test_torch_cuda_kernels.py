@@ -17,6 +17,11 @@ from paddle_tpu_torch.ops.ragged_paged_attention import (
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# ||got - want|| / ||want||: a few times what a right kernel reads at
+# bf16 (its outputs differ from the plain version's by bf16 roundings of
+# single elements) and far below what a kernel that skips one tile reads
+# (test_flash_limits_reject_a_kernel_that_skips_a_tile)
+REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -154,12 +159,21 @@ def flash_inputs(bh, sq, sk, d, dtype, device, seed):
     return r(sq), r(sk), r(sk), r(sq)
 
 
+def rel_err(got, want) -> float:
+    """``||got - want|| / ||want||`` over all elements, in fp32."""
+    diff = (got.float() - want.float()).norm()
+    return (diff / want.float().norm().clamp_min(1e-30)).item()
+
+
 def _close(got, want, dtype):
-    """Within TOL of the plain version, relative to max(1, max |plain|)."""
+    """Within REL_TOL of the plain version in relative norm, and every
+    element within TOL relative to max(1, max |plain|)."""
     scale = max(1.0, want.float().abs().max().item())
     err = (got.float() - want.float()).abs().max().item()
     assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
     assert err <= TOL[dtype] * scale, (err, scale)
+    assert rel_err(got, want) <= REL_TOL[dtype], rel_err(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -190,21 +204,22 @@ def test_flash_kernels_match_plain(card, bh, sq, sk, d, causal, dropout,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_autograd_runs_the_kernels(card, dtype):
-    from paddle_tpu_torch.ops.flash_attention import (KERNEL_NAMES,
-                                                      flash_attention)
+def test_flash_autograd_runs_the_kernels(card, dtype, monkeypatch):
+    import paddle_tpu_torch.ops.flash_attention as fa
 
     g = torch.Generator(device=card).manual_seed(3)
     x = [torch.randn(2, 256, 4, 48, generator=g, device=card).to(dtype)
          .requires_grad_(True) for _ in range(3)]
     grads = {}
     for impl in ("cuda", "torch"):
+        # every kernel entry point takes the route ``impl``
+        monkeypatch.setattr(_build, "pick_impl", lambda _, t, i=impl: i)
         _build.reset_launches()
-        out = flash_attention(*x, causal=True, impl=impl)
+        out = fa.flash_attention(*x, causal=True)
         grads[impl] = torch.autograd.grad(out.square().sum(), x)
         counts = _build.launches()
-        assert counts == ({n: 1 for n in KERNEL_NAMES} if impl == "cuda"
-                          else {})
+        assert counts == ({n: 1 for n in fa.KERNEL_NAMES}
+                          if impl == "cuda" else {})
     for a, b in zip(grads["cuda"], grads["torch"]):
         _close(a, b, dtype)
 
@@ -223,3 +238,149 @@ def test_flash_kernels_reject_what_they_do_not_take(card):
                   False, 0.125)
     with pytest.raises(ValueError, match="multiples"):
         flash_fwd(q[:, :96].contiguous(), k, v, False, 0.125)
+
+
+MUTATIONS = {
+    # kind: (kernel, loop it walks, the loop with one tile left out)
+    "fwd": ("fa_fwd_mma_kernel", "for (int t = 0; t <= last; ++t) {",
+            "for (int t = (last > 0); t <= last; ++t) {"),
+    "dq": ("fa_dq_mma_kernel", "for (int t = 0; t <= last; ++t) {",
+           "for (int t = (last > 0); t <= last; ++t) {"),
+    "dkv": ("fa_dkv_mma_kernel",
+            "for (int r0 = 0; r0 < sq; r0 += kQTileKV) {",
+            "for (int r0 = 0; r0 < sq - kQTileKV; r0 += kQTileKV) {"),
+}
+
+
+def _mutated_source(kernel: str, loop: str, broken: str) -> str:
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    at = src.index(loop, src.index(kernel + "("))
+    return src[:at] + broken + src[at + len(loop):]
+
+
+def _flash_case(kind, q, k, v, do, args, impl=None):
+    from paddle_tpu_torch.ops.flash_attention import (flash_dkv, flash_dq,
+                                                      flash_fwd)
+
+    kw = {} if impl is None else dict(impl=impl)
+    if kind == "fwd":
+        return flash_fwd(q, k, v, *args, **kw)[0]
+    out, lse = flash_fwd(q, k, v, *args, impl="torch")
+    delta = (do.float() * out.float()).sum(-1)
+    if kind == "dq":
+        return flash_dq(q, k, v, do, lse, delta, *args, **kw)
+    return torch.cat(flash_dkv(q, k, v, do, lse, delta, *args, **kw))
+
+
+def test_flash_limits_reject_a_kernel_that_skips_a_tile(card, tmp_path,
+                                                       monkeypatch):
+    """The bf16 limits tell a right kernel from a broken one: each
+    tensor-core kernel is rebuilt with one tile of its loop left out (kv
+    tile 0 for the forward and dQ, the last q tile for dK/dV), and at the
+    training path's sequence length and head size its result must miss
+    REL_TOL, while the right kernel meets it. Prints both readings."""
+    import ctypes
+    import subprocess
+
+    q, k, v, do = flash_inputs(8, 1024, 1024, 128, torch.bfloat16, card,
+                               seed=17)
+    args = (True, 1.0 / 128 ** 0.5, 0.0, 0)
+    want = {kind: _flash_case(kind, q, k, v, do, args, impl="torch")
+            for kind in MUTATIONS}
+    right = {kind: rel_err(_flash_case(kind, q, k, v, do, args), want[kind])
+             for kind in MUTATIONS}
+    procs = {}
+    for kind, (kernel, loop, broken) in MUTATIONS.items():
+        src = tmp_path / f"{kind}.cu"
+        src.write_text(_mutated_source(kernel, loop, broken))
+        lib = tmp_path / f"lib{kind}.so"
+        procs[kind] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    broken_err = {}
+    for kind, (lib, proc) in procs.items():
+        out = proc.communicate()[0]
+        assert proc.returncode == 0, out.decode()[-2000:]
+        monkeypatch.setitem(_build._LIBS, "flash_attention",
+                            ctypes.CDLL(str(lib)))
+        broken_err[kind] = rel_err(_flash_case(kind, q, k, v, do, args),
+                                   want[kind])
+    print(f"flash bf16 rel err, right kernels: {right}; kernels missing "
+          f"one tile: {broken_err}; limit {REL_TOL[torch.bfloat16]}")
+    for kind in MUTATIONS:
+        assert right[kind] <= REL_TOL[torch.bfloat16] < broken_err[kind]
+
+
+# ----------------------------------------------- softmax cross-entropy
+
+XENT_CASES = [
+    # (rows, vocab): 16-byte vector rows, a ragged vocabulary the vectors
+    # cannot cover (scalar sweep), and the training path's vocabulary
+    (300, 2048),
+    (67, 2101),
+    (64, 50304),
+]
+
+
+def xent_inputs(n, v, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    z = (torch.randn(n, v, generator=g, device=device) * 3).to(dtype)
+    labels = torch.randint(0, v, (n,), generator=g, device=device)
+    labels[1] = -100   # ignore_index: loss 0, gradient 0
+    labels[2] = -7     # outside the vocabulary: picks no logit
+    labels[3] = v - 1
+    grad = torch.randn(n, generator=g, device=device)
+    return z, labels, grad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,v", XENT_CASES)
+def test_xent_kernels_match_plain(card, n, v, dtype):
+    from paddle_tpu_torch.ops.softmax_xent import (KERNEL_NAMES, xent_bwd,
+                                                   xent_fwd)
+
+    z, labels, g = xent_inputs(n, v, dtype, card, seed=n + v)
+    _build.reset_launches()
+    loss, lse = xent_fwd(z, labels)
+    want_loss, want_lse = xent_fwd(z, labels, impl="torch")
+    _close(loss, want_loss, torch.float32)
+    _close(lse, want_lse, torch.float32)
+    assert loss[1].item() == 0.0
+    dz = xent_bwd(z, labels, want_lse, g)
+    _close(dz, xent_bwd(z, labels, want_lse, g, impl="torch"), dtype)
+    assert (dz[1] == 0).all()
+    torch.cuda.synchronize()
+    assert _build.launches() == {name: 1 for name in KERNEL_NAMES}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_entropy_runs_the_xent_kernels(card, dtype, monkeypatch):
+    import paddle_tpu_torch.ops.softmax_xent as sx
+    from paddle_tpu_torch.nn import functional as F
+
+    z, labels, _ = xent_inputs(256, 4096, dtype, card, seed=5)
+    grads, losses = {}, {}
+    for impl in ("cuda", "torch"):
+        monkeypatch.setattr(_build, "pick_impl", lambda _, t, i=impl: i)
+        x = z.clone().requires_grad_(True)
+        _build.reset_launches()
+        losses[impl] = F.cross_entropy(x, labels)
+        grads[impl], = torch.autograd.grad(losses[impl], x)
+        assert _build.launches() == ({n: 1 for n in sx.KERNEL_NAMES}
+                                     if impl == "cuda" else {})
+    _close(losses["cuda"], losses["torch"], dtype)
+    _close(grads["cuda"], grads["torch"], dtype)
+
+
+def test_xent_kernels_reject_what_they_do_not_take(card):
+    from paddle_tpu_torch.ops.softmax_xent import xent_fwd
+
+    z, labels, _ = xent_inputs(8, 256, torch.float32, card, seed=0)
+    with pytest.raises(ValueError, match="float32 and bfloat16"):
+        xent_fwd(z.half(), labels)
+    with pytest.raises(ValueError, match="int64"):
+        xent_fwd(z, labels.int())
+    with pytest.raises(ValueError, match="contiguous"):
+        xent_fwd(z.t().contiguous().t(), labels)
+    with pytest.raises(ValueError, match="CUDA"):
+        xent_fwd(z, labels.cpu(), impl="cuda")

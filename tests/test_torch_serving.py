@@ -196,22 +196,31 @@ def test_token_step_matches_jax(jax_model, port_model, segs, n_pad, tq):
 
 @pytest.mark.parametrize("segs,n_pad,tq", TOKEN_STEP_CASES)
 def test_token_step_bf16_matches_jax(jax_model, segs, n_pad, tq):
-    """bf16 weights and pools on both sides (RoPE tables fp32). The two
-    round in different places: the reference keeps RoPE output, q and
-    (by promotion) the residual stream after the first attention in fp32;
-    the port keeps them bf16 and runs LayerNorm as one fused op. Logits
-    agree within 3e-2 x max |logit| (a few bf16 roundings of 2**-8 each
-    between the embedding and the head); the same pool rows are written,
-    within 2e-2 x max |K/V|."""
+    """bf16 weights and pools on both sides (RoPE tables fp32). Both write
+    LayerNorm out in the activation dtype and keep RoPE output fp32 until
+    k is written to its pool. They still round in different places: the
+    port casts q to the pools' dtype for its kernel, so its residual stream
+    stays bf16, while the reference's fp32 q promotes its residual stream
+    to fp32 after the first attention; and XLA keeps some fused
+    intermediates in fp32. Limits, with readings of the three steps:
+
+    - logits within 3e-2 x max |logit| (7.7e-3, 1.46e-2, 1.11e-2; the
+      port before its LayerNorm was written out: up to 1.89e-2);
+    - the same pool rows written, within 2e-2 x max |K/V| of the
+      reference's;
+    - at least 60% of the first layer's written K/V entries equal to the
+      reference's bit for bit (69-82%).
+
+    The control, the port computing in fp32 from the same bf16 weights
+    and pool contents, reads 4.6e-3, 1.09e-2, 1.60e-2 on the logits, so
+    the logits alone cannot tell it from bf16 at this size; it writes no
+    entry equal to the reference's bf16 ones and misses the last limit.
+    ``-s`` prints the readings."""
     params = numpy_params(jax_model)
     jax_params = jax.tree_util.tree_map(
         lambda a: jnp.asarray(a, jnp.bfloat16), params)
     jax_params["rope_cos"] = jnp.asarray(params["rope_cos"])
     jax_params["rope_sin"] = jnp.asarray(params["rope_sin"])
-    p = params_from_jax(params, device="cpu", dtype=torch.bfloat16)
-    model = GPTServingModel(p["embedding"], p["head"], p["layers"],
-                            n_heads=HEADS, head_dim=HDIM, use_rope=True,
-                            max_position=64, device="cpu")
     pools, step, n_live = packed_inputs(segs, n_pad, tq, block_size=4,
                                         maxb=16, num_blocks=80, seed=n_pad)
     pools = [p.astype(jnp.bfloat16) for p in pools]
@@ -223,27 +232,49 @@ def test_token_step_bf16_matches_jax(jax_model, segs, n_pad, tq):
         [jnp.asarray(p) for p in pools[N_LAYERS:]],
         *[jnp.asarray(a) for a in step], jnp.asarray(active),
         attn_impl="xla")
-    as_torch = lambda a: torch.from_numpy(a.astype(np.float32)).bfloat16()
-    tk = [as_torch(p) for p in pools[:N_LAYERS]]
-    tv = [as_torch(p) for p in pools[N_LAYERS:]]
-    logits = model.token_step(tk, tv, *[torch.from_numpy(a) for a in step],
-                              n_active=n_live).numpy()
     want = np.asarray(jlogits, np.float32)
-    assert logits.shape == want.shape == (len(step[0]), VOCAB)
-    scale = np.abs(want).max()
-    ratio = np.abs(logits - want).max() / scale
-    print(f"bf16 token_step vs JAX: max |diff| / max |logit| = {ratio:.3e}")
-    assert ratio <= 3e-2
-    for got_pool, want_pool, before in zip(tk + tv, list(jk) + list(jv),
-                                           pools):
-        got_pool = got_pool.float().numpy()
-        want_pool = np.asarray(want_pool, np.float32)
-        before = before.astype(np.float32)
-        # written token slots: any of the slot's H x D values changed
-        written = lambda pool: (pool != before).any(axis=(-2, -1))
-        np.testing.assert_array_equal(written(got_pool), written(want_pool))
-        assert np.abs(got_pool - want_pool).max() \
-            <= 2e-2 * np.abs(want_pool).max()
+    bf16 = params_from_jax(params, device="cpu", dtype=torch.bfloat16)
+
+    def failures(dtype):
+        """The port's step on the bf16 weights and pools, computed in
+        ``dtype``; returns the limits it misses."""
+        p = jax.tree_util.tree_map(lambda t: t.to(dtype), bf16)
+        model = GPTServingModel(p["embedding"], p["head"], p["layers"],
+                                n_heads=HEADS, head_dim=HDIM, use_rope=True,
+                                max_position=64, device="cpu")
+        as_torch = lambda a: torch.from_numpy(a.astype(np.float32)).to(dtype)
+        pools_t = [as_torch(p) for p in pools]
+        logits = model.token_step(
+            pools_t[:N_LAYERS], pools_t[N_LAYERS:],
+            *[torch.from_numpy(a) for a in step], n_active=n_live).numpy()
+        assert logits.shape == want.shape == (len(step[0]), VOCAB)
+        ratio = np.abs(logits - want).max() / np.abs(want).max()
+        print(f"{dtype} token_step vs JAX bf16: max |diff| / max |logit| "
+              f"= {ratio:.3e}")
+        missed = [] if ratio <= 3e-2 else [f"logits {ratio}"]
+        first_layer = (0, N_LAYERS)  # the first layer's K and V pools
+        for i, (got_pool, want_pool, before) in enumerate(
+                zip(pools_t, list(jk) + list(jv), pools)):
+            got_pool = got_pool.float().numpy()
+            want_pool = np.asarray(want_pool, np.float32)
+            before = before.astype(np.float32)
+            # written token slots: any of the slot's H x D values changed
+            written = lambda pool: (pool != before).any(axis=(-2, -1))
+            np.testing.assert_array_equal(written(got_pool),
+                                          written(want_pool))
+            if np.abs(got_pool - want_pool).max() \
+                    > 2e-2 * np.abs(want_pool).max():
+                missed.append(f"pool {i} values")
+            if i in first_layer:
+                rows = written(want_pool)
+                equal = (got_pool[rows] == want_pool[rows]).mean()
+                print(f"pool {i}: {equal:.3f} of written entries bit-equal")
+                if equal < 0.6:
+                    missed.append(f"pool {i}: {equal} bit-equal")
+        return missed
+
+    assert failures(torch.bfloat16) == []
+    assert failures(torch.float32) != []  # the control
 
 
 # ------------------------------------------------------------- the engine
