@@ -23,11 +23,16 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    requests (32-1024 prompt tokens, 64 new tokens, half greedy, half
    temperature 0.8 / top-k 50) arriving in two waves. Every request must
    finish by length and the KV pool must drain. Launch counts are reset
-   just before and read just after: every kernel must have run. A second,
-   profiled pass over the same prompts gives the device-time breakdown of
-   decode-only steps.
+   just before and read just after: every kernel must have run. A second
+   pass over the same prompts in the same waves profiles its mixed step
+   (step 4: decode rows and prefill chunks) and three decode-only steps:
+   device time by kernel, the attention kernel's time from the profiler.
 6. ``prefix`` — the prefix cache on: 8 requests sharing a 640-token
    prompt; the 7 that follow the first must skip its prefill.
+   ``preempt`` — the serve traffic on the full-width model at 4 layers in
+   fp32, with the serve pool and with one too small for it: preemption
+   must happen in the small pool only, both pools must drain, and the
+   streams must be equal token for token.
 7. ``flash`` — the three flash-attention kernels (forward, dQ, dK/dV)
    against their plain PyTorch versions at the training path's shapes
    (BH=128, S=1024, D=128, causal) in fp32 and bf16, plus a bf16 dropout
@@ -42,11 +47,30 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    limits, median times with the L2 cache flushed, bytes, operations and
    the bound; torch's ``cross_entropy`` (per-row losses) as the
    forward's yardstick.
-9. ``train_parity`` — GPT-3 1.3B width at 2 layers in fp32: one forward
+9. ``sparse`` — the three block-sparse attention kernels (forward, dQ,
+   dK/dV) against their plain versions at the sparse path's shapes (B=2,
+   H=16, S=4096, D=128) on BigBird's pattern at 128-token blocks (window
+   3, global 2, random 3), fp32 and bf16, and a causal bf16 case at
+   blk_q 256 / blk_k 128 whose fully masked rows must come back 0: errors
+   against the limits, median times with the L2 cache flushed, bytes,
+   operations and the bound from the active pairs; ``sparse_library``
+   times torch's scaled_dot_product_attention with the expanded boolean
+   mask, forward and backward, as the yardstick.
+10. ``sparse_path`` — ``nn.functional.sparse_attention`` as users call
+   it, fp32, [2, 16, 4096, 128] with BigBird's pattern as an int32 CSR,
+   forward and backward twice: each kernel launches once a call, the
+   second call takes the route from the cache with no host copy, and out
+   and the q/k/v gradients agree with the dense masked composition.
+11. ``layer_norm`` — the LayerNorm kernel against its plain version at
+   [8192, 2048] and [16, 2048], fp32 and bf16, with
+   ``torch.nn.functional.layer_norm`` as the yardstick; then
+   ``fused_layer_norm`` forward and backward through autograd, kernel
+   against plain route (``layer_norm_path``).
+12. ``train_parity`` — GPT-3 1.3B width at 2 layers in fp32: one forward
    and backward through the kernels (attention and cross-entropy) and
    one through their plain versions; the loss and every gradient must
    agree.
-10. ``train`` — the training path: ``TrainStepper`` over the 24-layer GPT
+13. ``train`` — the training path: ``TrainStepper`` over the 24-layer GPT
    at GPT-3 1.3B width, O2, AdamW, batch 8 x 1024 on one seeded batch:
    2 warm-up and 10 timed steps, then one profiled step. The loss must
    fall, each flash kernel must launch 24 times per step and each
@@ -187,47 +211,58 @@ def rpa_bound(args, peaks):
     return bound_of(*rpa_work(args), args[0].dtype, peaks)
 
 
-class AttentionProbe:
-    """For one engine step: CUDA events around every attention call the
-    model makes, and the bound of the step's first call (every layer's
-    call has the same segments, so the same work)."""
+class AttentionArgs:
+    """For the engine steps run inside it: the number of attention calls
+    the model makes and the arguments of the first (every layer's call in
+    a step has the same segments, so the same work)."""
 
     def __init__(self):
         import paddle_tpu_torch.serving.model as serving_model
 
         self._module = serving_model
         self._real = serving_model.ragged_paged_attention_chunked
-        self._events, self._args = [], None
+        self.args, self.calls = None, 0
 
     def __enter__(self):
-        self._module.ragged_paged_attention_chunked = self._timed
+        self._module.ragged_paged_attention_chunked = self._record
         return self
 
     def __exit__(self, *exc):
         self._module.ragged_paged_attention_chunked = self._real
 
-    def _timed(self, *args, **kwargs):
-        if self._args is None:
-            self._args = args
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = self._real(*args, **kwargs)
-        end.record()
-        self._events.append((start, end))
-        return out
+    def _record(self, *args, **kwargs):
+        if self.args is None:
+            self.args = args
+        self.calls += 1
+        return self._real(*args, **kwargs)
 
-    def report(self, peaks):
-        torch.cuda.synchronize()
-        ms = [a.elapsed_time(b) for a, b in self._events]
-        bound = rpa_bound(self._args, peaks)
-        return dict(calls=len(ms), attention_ms=sum(ms),
-                    ms_per_call=sum(ms) / len(ms),
-                    rows=int(self._args[0].shape[0]),
-                    live_segments=int((self._args[5] > 0).sum().item()),
-                    bytes_per_call=bound["bytes"], ops_per_call=bound["ops"],
-                    bound_ms_per_call=bound["bound_ms"],
-                    bound_by=bound["bound_by"])
+
+def kernel_ms(prof, fragment: str):
+    """Device ms and launches of the profiled kernels whose name holds
+    ``fragment``."""
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and fragment in e.name]
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3, len(events)
+
+
+def attention_report(prof, probe, n_steps, peaks):
+    """The attention kernel's device time over ``n_steps`` profiled steps
+    (the profiler's kernel time of ``rpa_chunked_kernel``, no host gaps),
+    per step and per call, beside the bound of the first call."""
+    ms, launches = kernel_ms(prof, "rpa_chunked_kernel")
+    if launches != probe.calls:
+        raise AssertionError(f"profiler saw {launches} attention kernels, "
+                             f"the model made {probe.calls} calls")
+    bound = rpa_bound(probe.args, peaks)
+    return dict(calls=launches, attention_ms=ms / n_steps,
+                ms_per_call=ms / launches,
+                rows=int(probe.args[0].shape[0]),
+                live_segments=int((probe.args[5] > 0).sum().item()),
+                bytes_per_call=bound["bytes"], ops_per_call=bound["ops"],
+                bound_ms_per_call=bound["bound_ms"],
+                bound_by=bound["bound_by"],
+                x_bound=ms / launches / bound["bound_ms"])
 
 
 def phase_kernel(device, peaks, timer):
@@ -365,40 +400,66 @@ def phase_model(device, cfg, weights):
                              f" vs tolerance {1e-3 * scale}")
 
 
-def profile_decode_steps(engine, prompts, peaks):
-    """After the measured run: serve the prompts again (greedy), and once
-    all 16 decode, time 3 steps plainly, the next 3 under
-    ``torch.profiler`` and one more with CUDA events around its attention
-    calls, then evict the rest. The profiler's overhead stays out of every
-    end-to-end number."""
+def profile_steps(engine, prompts, peaks):
+    """After the measured run: serve the prompts again (greedy) in the
+    same two waves, so that step 4 is the measured run's mixed step
+    (decode rows and prefill chunks), and profile that step; once all 16
+    decode, time 3 steps plainly and the next 3 under ``torch.profiler``,
+    then evict the rest. Attention time is the profiler's kernel time in
+    both. The profiler's overhead stays out of every end-to-end number.
+    Returns (mixed step, decode breakdown)."""
     from paddle_tpu_torch.serving import SamplingParams
 
-    reqs = [engine.submit(p, SamplingParams(max_new_tokens=64))
-            for p in prompts]
-    plain_ms, profiled_ms, prof, out = [], [], None, None
+    sp = SamplingParams(max_new_tokens=64)
+    reqs = [engine.submit(p, sp) for p in prompts[:8]]
+    plain_ms, profiled_ms, prof, out, mixed = [], [], None, None, None
+    n_steps = 0
     while out is None and engine.scheduler.has_work:
+        if n_steps == 3:
+            reqs += [engine.submit(p, sp) for p in prompts[8:]]
+        if n_steps == 4:
+            mixed = profile_one_step(engine, peaks)
+            n_steps += 1
+            continue
         decoding = all(r.state in ("running", "finished") for r in reqs)
         if decoding and len(plain_ms) == 3 and prof is None:
             prof = torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA])
+            probe = AttentionArgs().__enter__()
             prof.start()
         ts = time.perf_counter()
         engine.step()
         torch.cuda.synchronize()
+        n_steps += 1
         if decoding:
             (plain_ms if prof is None else profiled_ms).append(
                 (time.perf_counter() - ts) * 1e3)
         if len(profiled_ms) == 3:
             prof.stop()
+            probe.__exit__()
             out = device_breakdown(prof, 3, profiled_ms, plain_ms)
-            with AttentionProbe() as probe:
-                engine.step()
-            out["attention"] = probe.report(peaks)
+            out["attention"] = attention_report(prof, probe, 3, peaks)
     engine.stop(drain=False)
     if engine.kv.blocks_in_use != 0:
         raise AssertionError("KV blocks leaked in the profiling pass")
-    return out or {"device_time": "not measured (no decode-only window)"}
+    return mixed, out or {
+        "device_time": "not measured (no decode-only window)"}
+
+
+def profile_one_step(engine, peaks):
+    """One engine step under the profiler: its device busy time and its
+    attention kernels' share of it."""
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with AttentionArgs() as probe, prof:
+        engine.step()
+        torch.cuda.synchronize()
+    busy, ops = kernel_ms(prof, "")
+    res = attention_report(prof, probe, 1, peaks)
+    return dict(res, device_busy_ms=busy, device_ops=ops,
+                fraction=res["attention_ms"] / busy)
 
 
 def device_breakdown(prof, n_steps, profiled_ms, plain_ms):
@@ -429,45 +490,45 @@ def device_breakdown(prof, n_steps, profiled_ms, plain_ms):
 def serve_config(**kwargs):
     from paddle_tpu_torch.serving import EngineConfig
 
-    return EngineConfig(max_slots=16, token_budget=256, block_size=16,
-                        max_blocks_per_seq=128, num_blocks=2048,
-                        dtype=torch.bfloat16, **kwargs)
+    return EngineConfig(**dict(dict(
+        max_slots=16, token_budget=256, block_size=16,
+        max_blocks_per_seq=128, num_blocks=2048, dtype=torch.bfloat16),
+        **kwargs))
 
 
-def phase_serve(device, cfg, model, peaks, launches_of, reset_launches):
-    from paddle_tpu_torch.serving import Engine, SamplingParams
+def serve_traffic(cfg):
+    """The serving traffic: 16 seeded prompts of 32..1024 tokens, 64 new
+    tokens each, even requests greedy and odd ones temperature 0.8 /
+    top-k 50."""
+    from paddle_tpu_torch.serving import SamplingParams
 
-    engine = Engine(model, serve_config(), device=device)
     rng = np.random.default_rng(SEED + 3)
     lens = rng.integers(32, 1025, 16)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
     params = [SamplingParams(max_new_tokens=64) if i % 2 == 0 else
               SamplingParams(max_new_tokens=64, temperature=0.8, top_k=50,
                              seed=i) for i in range(16)]
+    return lens, prompts, params
+
+
+def phase_serve(device, cfg, model, peaks, launches_of, reset_launches):
+    from paddle_tpu_torch.serving import Engine
+
+    engine = Engine(model, serve_config(), device=device)
+    lens, prompts, params = serve_traffic(cfg)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     reqs = [engine.submit(p, sp) for p, sp in zip(prompts[:8], params[:8])]
-    step_ms, n_steps, mixed = [], 0, None
+    step_ms, n_steps = [], 0
     while engine.scheduler.has_work:
         if n_steps == 3:
             reqs += [engine.submit(p, sp)
                      for p, sp in zip(prompts[8:], params[8:])]
         ts = time.perf_counter()
-        if n_steps == 4:  # a mixed step: decode rows + prefill chunks
-            s_start = torch.cuda.Event(enable_timing=True)
-            s_end = torch.cuda.Event(enable_timing=True)
-            with AttentionProbe() as probe:
-                s_start.record()
-                progressed = engine.step()
-                s_end.record()
-            mixed = dict(probe.report(peaks),
-                         step_ms=s_start.elapsed_time(s_end))
-            mixed["fraction"] = mixed["attention_ms"] / mixed["step_ms"]
-        else:
-            progressed = engine.step()
+        progressed = engine.step()
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - ts) * 1e3)
         if not progressed:
@@ -488,7 +549,7 @@ def phase_serve(device, cfg, model, peaks, launches_of, reset_launches):
                              f"{expected} (layers x steps)")
     ttft = [(r.first_token_time - r.submit_time) * 1e3 for r in reqs]
     n_out = sum(len(r.generated) for r in reqs)
-    breakdown = profile_decode_steps(engine, prompts, peaks)
+    mixed, breakdown = profile_steps(engine, prompts, peaks)
     emit("serve", config="gpt3_1p3b", layers=cfg.num_layers,
          dtype="bfloat16", requests=len(reqs), prompt_tokens=int(lens.sum()),
          output_tokens=n_out, steps=n_steps, wall_s=wall,
@@ -545,6 +606,75 @@ def phase_prefix(device, cfg, model, launches_of, reset_launches):
          follower_ttft_p50_ms=float(np.median(ttft)), ok=ok)
     if not ok:
         raise AssertionError("prefix-cache serve failed its checks")
+
+
+def run_waves(engine, prompts, params):
+    """The serve phase's arrivals: the first 8 requests, the other 8 after
+    3 steps; step until every request is done. Returns the requests and
+    the step count."""
+    reqs = [engine.submit(p, sp) for p, sp in zip(prompts[:8], params[:8])]
+    n_steps = 0
+    while engine.scheduler.has_work:
+        if n_steps == 3:
+            reqs += [engine.submit(p, sp)
+                     for p, sp in zip(prompts[8:], params[8:])]
+        if not engine.step():
+            raise RuntimeError("engine made no progress")
+        n_steps += 1
+    torch.cuda.synchronize()
+    return reqs, n_steps
+
+
+def phase_preempt(device, cfg, n_layers=4):
+    """Preemption on the card: the serve traffic on the full-width model
+    at 4 layers in fp32 (rounding noise far below a random model's logit
+    gaps), once with the serve pool and once with the smallest pool the
+    engine takes (one full-length sequence, 128 blocks), a quarter of what
+    the 16 requests hold at once. Both must finish every request, preempt
+    only in the small pool, drain both pools and give the same streams
+    token for token."""
+    from paddle_tpu_torch.serving import Engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model(cfg, random_weights(cfg, n_layers, device), device,
+                        torch.float32)
+    _, prompts, params = serve_traffic(cfg)
+    need = sum(-(-(len(p) + 64) // 16) for p in prompts)
+    runs = {}
+    for pool, num_blocks in (("serve", 2048),
+                             ("small", serve_config().max_blocks_per_seq)):
+        engine = Engine(model, serve_config(dtype=torch.float32,
+                                            num_blocks=num_blocks),
+                        device=device)
+        t0 = time.perf_counter()
+        reqs, n_steps = run_waves(engine, prompts, params)
+        runs[pool] = dict(
+            num_blocks=num_blocks, steps=n_steps,
+            wall_s=time.perf_counter() - t0,
+            preemptions=sum(r.preemptions for r in reqs),
+            by_length=all(r.finish_reason == "length"
+                          and len(r.generated) == 64 for r in reqs),
+            blocks_in_use=engine.kv.blocks_in_use,
+            streams=[list(r.generated) for r in reqs])
+        del engine
+    same = runs["serve"]["streams"] == runs["small"]["streams"]
+    diverged = [i for i, (a, b) in enumerate(zip(runs["serve"]["streams"],
+                                                 runs["small"]["streams"]))
+                if a != b]
+    ok = (same and runs["small"]["preemptions"] > 0
+          and runs["serve"]["preemptions"] == 0
+          and all(r["by_length"] and r["blocks_in_use"] == 0
+                  for r in runs.values()))
+    emit("preempt", config="gpt3_1p3b width", layers=n_layers,
+         dtype="float32", requests=len(prompts), blocks_needed=need,
+         streams_equal=same, diverged_requests=diverged,
+         **{pool: {k: v for k, v in r.items() if k != "streams"}
+            for pool, r in runs.items()}, ok=ok)
+    if not ok:
+        raise AssertionError("preemption changed the streams, did not "
+                             "happen, or leaked KV blocks")
+    del model
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------- flash attention
@@ -748,6 +878,327 @@ def phase_xent(device, peaks, timer, n=8 * 1024, v=50304):
             results[(kind, tag)] = res
         del z, labels, grad, lse
         torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------- block-sparse attention
+
+SPARSE_SHAPE = dict(batch=2, heads=16, seq=4096, head_dim=128)  # GPT-3 1.3B
+
+
+def bigbird_mask(n: int, seed: int = SEED):
+    """BigBird's ITC pattern at 128-token blocks (Zaheer et al. 2020): a
+    sliding window of 3 blocks, 2 global blocks and 3 random kv blocks per
+    q block, drawn from ``numpy.random.default_rng(seed)``."""
+    from paddle_tpu_torch.ops.block_sparse_attention import local_global_mask
+
+    rng = np.random.default_rng(seed)
+    mask = local_global_mask(n, n, window=1, global_blocks=2)
+    for i in range(n):
+        mask[i, rng.choice(n, 3, replace=False)] = True
+    return mask
+
+
+def causal_case_mask(mask128):
+    """The pattern at blk_q 256 / blk_k 128 for the causal case: pairs of
+    q blocks merged, and every odd q block i attending kv block 2i+1
+    alone, so its first 128 rows see no unmasked column (rows the port
+    defines as 0, the reference as NaN)."""
+    mask = mask128[0::2] | mask128[1::2]
+    mask[1::2] = False
+    for i in range(1, mask.shape[0], 2):
+        mask[i, 2 * i + 1] = True
+    return mask
+
+
+def sparse_pairs(spec, sq: int, sk: int, causal: bool) -> int:
+    """(q row, kv column) pairs the lists make active (and causal keeps)."""
+    off = sk - sq
+    r = np.arange(spec.blk_q)[:, None]
+    c = np.arange(spec.blk_k)[None, :]
+    pairs = 0
+    for i in range(spec.cols.shape[0]):
+        for j in spec.cols[i, :spec.counts[i]]:
+            pairs += (int(((i * spec.blk_q + r) + off
+                           >= (j * spec.blk_k + c)).sum()) if causal
+                      else spec.blk_q * spec.blk_k)
+    return pairs
+
+
+def sparse_work(kind: str, spec, bh: int, sq: int, sk: int, d: int,
+                elem: int, causal: bool):
+    """Bytes each kernel must move (every input read once, every output
+    written once: q, k, v, out or do, dq or dk dv, lse and delta fp32, the
+    int32 lists) and its operations over the active pairs: 2 D FLOP a pair
+    per matmul, 2 forward (QK^T, PV), 3 dQ, 4 dK/dV."""
+    tq, tk, rows = bh * sq * d * elem, bh * sk * d * elem, bh * sq * 4
+    q_lists = (spec.cols.size + spec.counts.size) * 4
+    kv_lists = (spec.rows.size + spec.rcounts.size) * 4
+    n_bytes, n_mm = {
+        "fwd": (2 * tq + 2 * tk + rows + q_lists, 2),
+        "dq": (3 * tq + 2 * tk + 2 * rows + q_lists, 3),
+        "dkv": (2 * tq + 4 * tk + 2 * rows + kv_lists, 4),
+    }[kind]
+    return n_bytes, 2 * n_mm * bh * d * sparse_pairs(spec, sq, sk, causal)
+
+
+def agreement_lse(what: str, got, want):
+    """:func:`agreement` for an lse, whose rows that saw no unmasked column
+    are -inf on both sides."""
+    inf = torch.isinf(want)
+    if not torch.equal(inf, torch.isinf(got)):
+        raise AssertionError(f"{what}: -inf rows differ")
+    return agreement(what, got.masked_fill(inf, 0.0),
+                     want.masked_fill(inf, 0.0))
+
+
+def phase_sparse(device, peaks, timer):
+    """The three block-sparse kernels against their plain versions at the
+    sparse path's shapes (B=2, H=16, S=4096, D=128 -> BH=32) on BigBird's
+    pattern at 128-token blocks, fp32 and bf16, plus a causal bf16 case
+    at blk_q 256 / blk_k 128 with fully masked rows; median times with
+    the L2 cache flushed; bytes, operations and the bound from the active
+    pairs; scaled_dot_product_attention with the expanded boolean mask as
+    the yardstick."""
+    from paddle_tpu_torch.ops.block_sparse_attention import (
+        block_mask_spec, bsa_dkv, bsa_dq, bsa_fwd)
+
+    sh = SPARSE_SHAPE
+    bh, s, d = sh["batch"] * sh["heads"], sh["seq"], sh["head_dim"]
+    scale = 1.0 / d ** 0.5
+    mask = bigbird_mask(s // 128)
+    g = torch.Generator(device=device).manual_seed(SEED + 8)
+    results = {}
+    for dtype, causal in ((torch.float32, False), (torch.bfloat16, False),
+                          (torch.bfloat16, True)):
+        spec = block_mask_spec(causal_case_mask(mask) if causal else mask,
+                               s, s, causal)
+        rnd = lambda: torch.randn(bh, s, d, generator=g,
+                                  device=device).to(dtype)
+        q, k, v, do = rnd(), rnd(), rnd(), rnd()
+        args = (spec, causal, scale)
+        out, lse = bsa_fwd(q, k, v, *args, impl="torch")
+        delta = (do.float() * out.float()).sum(-1)
+        calls = {
+            "fwd": lambda impl: bsa_fwd(q, k, v, *args, impl=impl),
+            "dq": lambda impl: bsa_dq(q, k, v, do, lse, delta, *args,
+                                      impl=impl),
+            "dkv": lambda impl: bsa_dkv(q, k, v, do, lse, delta, *args,
+                                        impl=impl),
+        }
+        tag = str(dtype).replace("torch.", "") + ("_causal_256x128"
+                                                  if causal else "")
+        for kind, call in calls.items():
+            got, want = call("cuda"), call("torch")
+            if torch.is_tensor(got):
+                got, want = (got,), (want,)
+            torch.cuda.synchronize()
+            errs = [(agreement_lse if t.dtype == torch.float32 and t.dim() == 2
+                     else agreement)(f"block-sparse {kind} ({tag})", a, t)
+                    for a, t in zip(got, want)]
+            res = dict(kind=kind, case=tag, max_abs_err=max(e for e, _ in errs),
+                       rel_err=max(r for _, r in errs), tol=TOL[dtype],
+                       rel_tol=REL_TOL[dtype], bh=bh, seq=s, head_dim=d,
+                       blk_q=spec.blk_q, blk_k=spec.blk_k, causal=causal,
+                       active_block_pairs=int(spec.counts.sum()),
+                       block_pairs=spec.mask.size,
+                       ms=timer.median_ms(lambda: call("cuda")),
+                       plain_ms=timer.median_ms(lambda: call("torch")),
+                       **bound_of(*sparse_work(kind, spec, bh, s, s, d,
+                                               q.element_size(), causal),
+                                  dtype, peaks))
+            if causal and kind == "fwd":
+                empty = torch.isinf(got[1])
+                res["masked_rows"] = int(empty.sum().item())
+                res["masked_rows_zero"] = bool(
+                    (got[0][empty] == 0).all().item())
+                if not res["masked_rows"] or not res["masked_rows_zero"]:
+                    raise AssertionError("causal case: no fully masked rows, "
+                                         "or their output is not 0")
+            emit("sparse", name=f"block_sparse_attention_{kind}", **res)
+            results[(kind, tag)] = res
+        if dtype == torch.bfloat16 and not causal:
+            results["library"] = masked_sdpa_yardstick(q, k, v, do, spec,
+                                                       timer, sh["batch"])
+            emit("sparse_library", **results["library"])
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+    return results
+
+
+def masked_sdpa_yardstick(q, k, v, do, spec, timer, batch):
+    """torch's scaled_dot_product_attention with the expanded boolean mask
+    on the same bf16 inputs ([B, H, S, D] views): the same function,
+    computed densely. Forward alone, and its backward (dq, dk, dv in one
+    call). Timed here only; the port never calls it."""
+    import torch.nn.functional as TF
+
+    shape = (batch, q.shape[0] // batch) + tuple(q.shape[1:])
+    qs, ks, vs = (x.reshape(shape).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    mask = (torch.from_numpy(spec.mask).to(q.device)  # [S, S] elements
+            .repeat_interleave(spec.blk_q, 0)
+            .repeat_interleave(spec.blk_k, 1))
+    fwd = lambda: TF.scaled_dot_product_attention(qs, ks, vs,
+                                                  attn_mask=mask)
+    out = fwd()
+    bwd = lambda: torch.autograd.grad(out, (qs, ks, vs), do.reshape(shape),
+                                      retain_graph=True)
+    return dict(sdpa_masked_forward_ms=timer.median_ms(fwd),
+                sdpa_masked_backward_ms=timer.median_ms(bwd))
+
+
+def bigbird_csr(mask, blk: int, batch: int, heads: int, device):
+    """The block mask as the int32 CSR pattern sparse_attention takes,
+    the same for every (batch, head): offsets [B, H, T + 1], columns
+    [B, H, nnz]."""
+    el = np.kron(mask, np.ones((blk, blk), bool))
+    _, cols = np.nonzero(el)
+    off = np.concatenate([[0], np.cumsum(el.sum(axis=1))])
+    expand = lambda a: torch.from_numpy(a.astype(np.int32)).to(device).expand(
+        batch, heads, a.size).contiguous()
+    return expand(off), expand(cols)
+
+
+def phase_sparse_path(device, launches_of, reset_launches):
+    """The entry point as users call it: paddle_tpu_torch.nn.functional.
+    sparse_attention on [B, H, T, D] fp32 tensors with requires_grad and
+    BigBird's pattern as an int32 CSR, then (out * w).sum().backward().
+    Each of the three kernels must launch once; a second call must take
+    the route from the cache, copying nothing to the host; out and every
+    gradient must agree with the dense masked composition (the plain
+    route) within 1e-4 in relative norm."""
+    from paddle_tpu_torch.nn import functional as TF
+    from paddle_tpu_torch.nn.functional import attention as att
+    from paddle_tpu_torch.ops.block_sparse_attention import KERNEL_NAMES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sh = SPARSE_SHAPE
+    b, h, t, d = sh["batch"], sh["heads"], sh["seq"], sh["head_dim"]
+    mask = bigbird_mask(t // 128)
+    off, cols = bigbird_csr(mask, 128, b, h, device)
+    g = torch.Generator(device=device).manual_seed(SEED + 9)
+    q, k, v, w = (torch.randn(b, h, t, d, generator=g, device=device)
+                  for _ in range(4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    analyse = mock.Mock(wraps=att._analyse)
+    timing = {}
+    with mock.patch.object(att, "_analyse", analyse):
+        for call in ("first", "cached"):
+            for x in leaves:
+                x.grad = None
+            torch.cuda.synchronize()
+            reset_launches()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            out = TF.sparse_attention(*leaves, off, cols)
+            ev[1].record()
+            (out * w).sum().backward()
+            ev[2].record()
+            torch.cuda.synchronize()
+            timing[call] = dict(wall_ms=(time.perf_counter() - t0) * 1e3,
+                                forward_ms=ev[0].elapsed_time(ev[1]),
+                                backward_ms=ev[1].elapsed_time(ev[2]),
+                                launches=launches_of(),
+                                analyses=analyse.call_count)
+    got = [out.detach()] + [x.grad for x in leaves]
+    del out
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    reset_launches()
+    ref = att._sa(*plain, off, cols)
+    (ref * w).sum().backward()
+    torch.cuda.synchronize()
+    plain_launches = launches_of()
+    want = [ref.detach()] + [x.grad for x in plain]
+    rel = {name: rel_err(a, r)
+           for name, a, r in zip(("out", "dq", "dk", "dv"), got, want)}
+    once = {n: 1 for n in KERNEL_NAMES}
+    ok = (all(r <= 1e-4 for r in rel.values())
+          and all(torch.isfinite(a).all().item() for a in got)
+          and timing["first"]["launches"] == once
+          and timing["cached"]["launches"] == once
+          and timing["first"]["analyses"] == 1
+          and timing["cached"]["analyses"] == 1 and plain_launches == {})
+    emit("sparse_path", batch=b, heads=h, seq=t, head_dim=d, dtype="float32",
+         pattern="BigBird ITC, 128-token blocks: window 3, global 2, "
+                 "random 3", active_block_pairs=int(mask.sum()),
+         block_pairs=int(mask.size), csr_nnz_per_head=int(cols.shape[-1]),
+         rel_err=rel, rel_tol=1e-4, **timing, ok=ok)
+    if not ok:
+        raise AssertionError("sparse_attention: kernel route and dense "
+                             "route disagree, or the route was not the "
+                             "kernels' or not cached")
+    launches = timing["first"]["launches"]
+    del q, k, v, w, leaves, plain, ref, got, want, off, cols
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------------ LayerNorm
+
+def phase_layer_norm(device, peaks, timer, launches_of, reset_launches,
+                     e=2048):
+    """The LayerNorm kernel against its plain version at the train path's
+    activations (8 x 1024 rows of E=2048) and a decode step's 16 rows, in
+    fp32 and bf16; median times with the L2 cache flushed;
+    torch.nn.functional.layer_norm as the yardstick. Then
+    fused_layer_norm forward and backward through autograd once, kernel
+    against plain route: the output and the three gradients must agree."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.ops.layer_norm import fused_layer_norm, ln_fwd
+
+    g = torch.Generator(device=device).manual_seed(SEED + 10)
+    gamma = torch.randn(e, generator=g, device=device)
+    beta = torch.randn(e, generator=g, device=device)
+    results = {}
+    for rows in (8 * 1024, 16):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(rows, e, generator=g, device=device) * 2
+                 + 0.5).to(dtype)
+            call = lambda impl: ln_fwd(x, gamma, beta, 1e-5, impl=impl)
+            got, want = call("cuda"), call("torch")
+            torch.cuda.synchronize()
+            err, rel = agreement(f"layer_norm ({rows} x {e}, {dtype})", got,
+                                 want)
+            tag = f"{rows}x{e}_" + str(dtype).replace("torch.", "")
+            # 8 FLOP an element in fp32: sum, subtract, square, sum,
+            # subtract, two multiplies, add
+            n_bytes = 2 * x.numel() * x.element_size() + 2 * e * 4
+            res = dict(case=tag, max_abs_err=err, rel_err=rel,
+                       tol=TOL[dtype], rel_tol=REL_TOL[dtype],
+                       ms=timer.median_ms(lambda: call("cuda")),
+                       plain_ms=timer.median_ms(lambda: call("torch")),
+                       library_ms=timer.median_ms(lambda: TF.layer_norm(
+                           x, (e,), gamma.to(dtype), beta.to(dtype), 1e-5)),
+                       **bound_of(n_bytes, 8 * x.numel(), torch.float32,
+                                  peaks))
+            emit("layer_norm", name="layer_norm_fwd", **res)
+            results[tag] = res
+    x = torch.randn(8, 1024, e, generator=g, device=device)
+    grads, outs, counts = {}, {}, {}
+    for impl in ("cuda", "torch"):
+        leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
+        reset_launches()
+        out = fused_layer_norm(*leaves, impl=impl)
+        (out ** 3).sum().backward()
+        torch.cuda.synchronize()
+        counts[impl] = launches_of()
+        outs[impl] = out.detach()
+        grads[impl] = [t.grad for t in leaves]
+    rel = {n: rel_err(a, b) for n, a, b in zip(
+        ("out", "dx", "dgamma", "dbeta"), [outs["cuda"]] + grads["cuda"],
+        [outs["torch"]] + grads["torch"])}
+    ok = (all(r <= REL_TOL[torch.float32] for r in rel.values())
+          and counts["cuda"] == {"layer_norm_fwd": 1}
+          and counts["torch"] == {})
+    emit("layer_norm_path", shape=[8, 1024, e], dtype="float32",
+         loss="sum(out ** 3)", rel_err=rel, rel_tol=REL_TOL[torch.float32],
+         launches=counts, ok=ok)
+    if not ok:
+        raise AssertionError("fused_layer_norm: kernel route and plain "
+                             "route disagree, or the kernel did not run once")
+    results["launches"] = counts["cuda"]["layer_norm_fwd"]
     return results
 
 
@@ -992,9 +1443,15 @@ def main() -> int:
     phase_prefix(device, cfg, model, _build.launches, _build.reset_launches)
     del model
     torch.cuda.empty_cache()
+    phase_preempt(device, cfg)
 
     flash = phase_flash(device, peaks, timer)
     xent = phase_xent(device, peaks, timer)
+    sparse = phase_sparse(device, peaks, timer)
+    sparse_launches = phase_sparse_path(device, _build.launches,
+                                        _build.reset_launches)
+    ln = phase_layer_norm(device, peaks, timer, _build.launches,
+                          _build.reset_launches)
     del timer
     torch.cuda.empty_cache()
     phase_train_parity(device, _build.launches, _build.reset_launches)
@@ -1023,6 +1480,20 @@ def main() -> int:
             xent_name, "paddle_tpu_torch/ops/csrc/softmax_xent.cu",
             f"paddle_tpu/ops/pallas/softmax_xent.py:{line}",
             train_launches[xent_name], res, res["library_ms"]))
+    bsa_ref = "paddle_tpu/ops/pallas/block_sparse_attention.py"
+    for kind, line in (("fwd", 92), ("dq", 182), ("dkv", 216)):
+        bsa_name = f"block_sparse_attention_{kind}"
+        library = (sparse["library"]["sdpa_masked_forward_ms"]
+                   if kind == "fwd" else None)
+        entries.append(kernel_entry(
+            bsa_name, "paddle_tpu_torch/ops/csrc/block_sparse_attention.cu",
+            f"{bsa_ref}:{line}", sparse_launches[bsa_name],
+            sparse[(kind, "bfloat16")], library))
+    res = ln["8192x2048_bfloat16"]
+    entries.append(kernel_entry(
+        "layer_norm_fwd", "paddle_tpu_torch/ops/csrc/layer_norm.cu",
+        "paddle_tpu/ops/pallas/layer_norm.py:23", ln["launches"], res,
+        res["library_ms"]))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -29,9 +29,12 @@ __all__ = ["build", "load", "ptxas_report", "count_launch", "launches",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
+# -I csrc: a source built from a copy elsewhere still finds the shared
+# headers (``*.cuh``)
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("ragged_paged_attention", "flash_attention", "softmax_xent")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-I{CSRC}")
+KERNEL_SOURCES = ("ragged_paged_attention", "flash_attention", "softmax_xent",
+                  "block_sparse_attention", "layer_norm")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

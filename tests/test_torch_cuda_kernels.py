@@ -252,8 +252,9 @@ MUTATIONS = {
 }
 
 
-def _mutated_source(kernel: str, loop: str, broken: str) -> str:
-    src = (_build.CSRC / "flash_attention.cu").read_text()
+def _mutated_source(kernel: str, loop: str, broken: str,
+                    source: str = "flash_attention") -> str:
+    src = (_build.CSRC / f"{source}.cu").read_text()
     at = src.index(loop, src.index(kernel + "("))
     return src[:at] + broken + src[at + len(loop):]
 
@@ -309,6 +310,228 @@ def test_flash_limits_reject_a_kernel_that_skips_a_tile(card, tmp_path,
           f"one tile: {broken_err}; limit {REL_TOL[torch.bfloat16]}")
     for kind in MUTATIONS:
         assert right[kind] <= REL_TOL[torch.bfloat16] < broken_err[kind]
+
+
+# ------------------------------------------------ block-sparse attention
+
+def block_mask(n_q, n_kv, seed, empty_col=None):
+    """A seeded random block mask: about half the pairs active, every q
+    block with one, and kv block ``empty_col`` attended by none."""
+    rs = np.random.RandomState(seed)
+    m = rs.rand(n_q, n_kv) < 0.5
+    if empty_col is not None:
+        m[:, empty_col] = False
+    fallback = 1 if empty_col == 0 else 0
+    m[~m.any(axis=1), fallback] = True
+    return m
+
+
+BSA_CASES = [
+    # (bh, sq, sk, d, blk_q, blk_k, causal, kv block nothing attends)
+    (2, 512, 512, 64, 128, 128, False, 1),
+    (2, 512, 512, 128, 128, 128, True, None),
+    (2, 1024, 1024, 128, 256, 128, True, 4),   # rows that see no column
+    (1, 1024, 1024, 64, 128, 256, False, 0),
+    (2, 1024, 1024, 128, 512, 256, False, 2),
+    (1, 512, 1024, 64, 256, 512, True, None),  # causal offset 512
+    (1, 1024, 768, 128, 512, 256, True, None),  # sq > sk: rows see none
+]
+
+
+def bsa_case(bh, sq, sk, d, blk_q, blk_k, causal, empty, dtype, device):
+    """A case's lists and inputs. Causal masks keep kv block 0 in every
+    row (the causal drop would empty some rows otherwise); with blk_q =
+    2 blk_k, odd q blocks attend only the kv block of their second half,
+    so their first half sees no column."""
+    from paddle_tpu_torch.ops.block_sparse_attention import block_mask_spec
+
+    n_q, n_kv = sq // blk_q, sk // blk_k
+    mask = block_mask(n_q, n_kv, seed=sq + blk_q + blk_k, empty_col=empty)
+    if causal:
+        mask[:, 0] = True
+        if blk_q == 2 * blk_k and sq == sk:
+            mask[1::2] = False
+            for i in range(1, n_q, 2):
+                mask[i, 2 * i + 1] = True
+    spec = block_mask_spec(mask, sq, sk, causal)
+    q, k, v, do = flash_inputs(bh, sq, sk, d, dtype, device, seed=d + sq)
+    return spec, q, k, v, do
+
+
+def _close_lse(got, want):
+    """lse: -inf on the same rows (those that saw no column), else
+    within the fp32 limits."""
+    inf = torch.isinf(want)
+    assert torch.equal(inf, torch.isinf(got))
+    _close(got.masked_fill(inf, 0.0), want.masked_fill(inf, 0.0),
+           torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,d,blk_q,blk_k,causal,empty", BSA_CASES)
+def test_block_sparse_kernels_match_plain(card, bh, sq, sk, d, blk_q, blk_k,
+                                          causal, empty, dtype):
+    from paddle_tpu_torch.ops.block_sparse_attention import (
+        KERNEL_NAMES, bsa_dkv, bsa_dq, bsa_fwd)
+
+    spec, q, k, v, do = bsa_case(bh, sq, sk, d, blk_q, blk_k, causal, empty,
+                                 dtype, card)
+    args = (spec, causal, 1.0 / d ** 0.5)
+    _build.reset_launches()
+    out, lse = bsa_fwd(q, k, v, *args)
+    want_out, want_lse = bsa_fwd(q, k, v, *args, impl="torch")
+    _close(out, want_out, dtype)
+    _close_lse(lse, want_lse)
+    empty_rows = torch.isinf(want_lse)
+    assert (out[empty_rows] == 0).all()
+    delta = (do.float() * want_out.float()).sum(-1)
+    _close(bsa_dq(q, k, v, do, want_lse, delta, *args),
+           bsa_dq(q, k, v, do, want_lse, delta, *args, impl="torch"), dtype)
+    got = bsa_dkv(q, k, v, do, want_lse, delta, *args)
+    want = bsa_dkv(q, k, v, do, want_lse, delta, *args, impl="torch")
+    for a, b in zip(got, want):
+        _close(a, b, dtype)
+    if empty is not None:  # written as exact zeros, not left unwritten
+        rows = slice(empty * blk_k, (empty + 1) * blk_k)
+        assert all((t[:, rows] == 0).all() for t in got)
+    torch.cuda.synchronize()
+    assert _build.launches() == {name: 1 for name in KERNEL_NAMES}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_sparse_autograd_runs_the_kernels(card, dtype, monkeypatch):
+    import paddle_tpu_torch.ops.block_sparse_attention as bsa
+
+    g = torch.Generator(device=card).manual_seed(4)
+    x = [torch.randn(2, 1024, 4, 48, generator=g, device=card).to(dtype)
+         .requires_grad_(True) for _ in range(3)]
+    mask = block_mask(4, 8, seed=9, empty_col=5)
+    mask[:, 0] = True
+    grads = {}
+    for impl in ("cuda", "torch"):
+        monkeypatch.setattr(_build, "pick_impl", lambda _, t, i=impl: i)
+        _build.reset_launches()
+        out = bsa.block_sparse_attention(*x, mask, causal=True)
+        grads[impl] = torch.autograd.grad(out.square().sum(), x)
+        assert _build.launches() == ({n: 1 for n in bsa.KERNEL_NAMES}
+                                     if impl == "cuda" else {})
+    for a, b in zip(grads["cuda"], grads["torch"]):
+        _close(a, b, dtype)
+
+
+def test_block_sparse_kernels_reject_what_they_do_not_take(card):
+    from paddle_tpu_torch.ops.block_sparse_attention import (
+        block_mask_spec, bsa_fwd)
+
+    spec, q, k, v, _ = bsa_case(1, 256, 256, 64, 128, 128, False, None,
+                                torch.float32, card)
+    with pytest.raises(ValueError, match="head_dim"):
+        bsa_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                v[..., :32].contiguous(), spec, False, 0.125)
+    with pytest.raises(ValueError, match="float32 and bfloat16"):
+        bsa_fwd(q.half(), k.half(), v.half(), spec, False, 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        bsa_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, spec,
+                False, 0.125)
+    other = block_mask_spec(np.ones((4, 4), bool), 512, 512, False)
+    with pytest.raises(ValueError, match="does not tile"):
+        bsa_fwd(q, k, v, other, False, 0.125)
+
+
+def test_block_sparse_limit_rejects_a_kernel_that_skips_a_block(
+        card, tmp_path, monkeypatch):
+    """The bf16 limit tells a right kernel from a broken one: the
+    tensor-core forward is rebuilt with the first active block of every
+    list of two or more left out, and at the sparse path's shapes (BH 32,
+    S 4096, D 128, BigBird's pattern) its output must miss REL_TOL, while
+    the right kernel meets it. Prints both readings."""
+    import ctypes
+    import subprocess
+
+    from paddle_tpu_torch.ops.block_sparse_attention import (
+        block_mask_spec, bsa_fwd)
+
+    rs = np.random.RandomState(0)
+    n = 32
+    mask = np.zeros((n, n), bool)
+    for i in range(n):  # window 3, global 2, random 3
+        mask[i, max(0, i - 1):i + 2] = True
+        mask[i, :2] = True
+        mask[i, rs.choice(n, 3, replace=False)] = True
+    spec = block_mask_spec(mask, 4096, 4096, False)
+    q, k, v, _ = flash_inputs(32, 4096, 4096, 128, torch.bfloat16, card,
+                              seed=21)
+    args = (spec, False, 1.0 / 128 ** 0.5)
+    want = bsa_fwd(q, k, v, *args, impl="torch")[0]
+    right = rel_err(bsa_fwd(q, k, v, *args)[0], want)
+    src = tmp_path / "bsa.cu"
+    src.write_text(_mutated_source(
+        "bsa_fwd_mma_kernel", "for (int a = 0; a < n; ++a) {",
+        "for (int a = (n > 1); a < n; ++a) {", "block_sparse_attention"))
+    lib = tmp_path / "libbsa.so"
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    assert proc.returncode == 0, proc.stdout.decode()[-2000:]
+    monkeypatch.setitem(_build._LIBS, "block_sparse_attention",
+                        ctypes.CDLL(str(lib)))
+    broken = rel_err(bsa_fwd(q, k, v, *args)[0], want)
+    print(f"block-sparse bf16 rel err, right kernel: {right}; kernel "
+          f"missing a block: {broken}; limit {REL_TOL[torch.bfloat16]}")
+    assert right <= REL_TOL[torch.bfloat16] < broken
+
+
+# -------------------------------------------------------------- LayerNorm
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,f", [(300, 2048), (67, 2101), (16, 2048),
+                                 (5, 64)])
+def test_layer_norm_kernel_matches_plain(card, n, f, dtype):
+    from paddle_tpu_torch.ops.layer_norm import KERNEL_NAME, ln_fwd
+
+    g = torch.Generator(device=card).manual_seed(n + f)
+    x = (torch.randn(n, f, generator=g, device=card) * 3 + 1).to(dtype)
+    gamma = torch.randn(f, generator=g, device=card)
+    beta = torch.randn(f, generator=g, device=card).to(dtype)
+    _build.reset_launches()
+    got = ln_fwd(x, gamma, beta, 1e-5)
+    want = ln_fwd(x, gamma, beta, 1e-5, impl="torch")
+    torch.cuda.synchronize()
+    assert _build.launches() == {KERNEL_NAME: 1}
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_layer_norm_autograd_runs_the_kernel(card, dtype, monkeypatch):
+    from paddle_tpu_torch.ops.layer_norm import KERNEL_NAME, fused_layer_norm
+
+    g = torch.Generator(device=card).manual_seed(1)
+    leaves = [torch.randn(*s, generator=g, device=card).to(dtype)
+              for s in ((4, 33, 2048), (2048,), (2048,))]
+    res = {}
+    for impl in ("cuda", "torch"):
+        xs = [t.clone().requires_grad_(True) for t in leaves]
+        _build.reset_launches()
+        out = fused_layer_norm(*xs, impl=impl)
+        res[impl] = [out] + list(torch.autograd.grad(
+            out.float().square().sum(), xs))
+        assert _build.launches() == ({KERNEL_NAME: 1} if impl == "cuda"
+                                     else {})
+    for a, b in zip(res["cuda"], res["torch"]):
+        _close(a, b, dtype)
+
+
+def test_layer_norm_kernel_rejects_what_it_does_not_take(card):
+    from paddle_tpu_torch.ops.layer_norm import ln_fwd
+
+    x = torch.zeros(4, 64, device=card)
+    w = torch.ones(64, device=card)
+    with pytest.raises(ValueError, match="float32 and bfloat16"):
+        ln_fwd(x.half(), w, w, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        ln_fwd(x.t().contiguous().t()[:, :4], w[:4], w[:4], 1e-5)
+    with pytest.raises(ValueError, match=r"\[N, F\]"):
+        ln_fwd(x, w[:32], w, 1e-5)
 
 
 # ----------------------------------------------- softmax cross-entropy
