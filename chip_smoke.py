@@ -13,9 +13,23 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 3. ``kernel`` — the ragged paged attention kernel against its plain
    PyTorch version at the serving path's full-width shapes (H=16, D=128,
    B=16, MAXB=128, TQ=8) on a seeded ragged mix of decode rows, prefill
-   tiles at unaligned offsets and inactive segments, in fp32 and bf16;
-   median times over >= 20 launches with the L2 cache flushed before each,
-   the bytes and operations the inputs need, and the resulting bound.
+   tiles at unaligned offsets and inactive segments, in fp32 and bf16:
+   max abs and relative norm errors against their limits; median times
+   over >= 20 launches with the L2 cache flushed before each, the bytes
+   and operations the inputs need, and the resulting bound.
+   ``decode`` — the per-row (decode) paged attention kernel behind
+   ``ragged_paged_attention``, its path being that entry point: (b) right
+   after ``kernel``, a decode batch that makes the card work (128 rows at
+   H=16, D=128, B=16, MAXB=128, seeded lengths 1..2048 plus rows of 0,
+   2048 and 3000 tokens, every row's blocks distinct in a pool of
+   16,384 + 1 blocks) in fp32 and bf16; (a) once the serve phase has run,
+   the rows of its first profiled decode-only step, on that step's layer-0
+   bf16 pools, held against the plain version and against the segmented
+   kernel on the same rows. Both: one call through the entry point with
+   the launch counts reset just before and read just after, errors
+   against the element and relative-norm limits, median times with the
+   L2 cache flushed, the plain version's time, bytes, operations, the
+   bound and the time over the bound.
 4. ``model`` — GPT-3 1.3B width (``gpt3_1p3b``, seeded random weights)
    in fp32: one ``token_step`` on a packed mixed prefill+decode batch with
    the kernel and with the plain attention; logits must agree.
@@ -184,25 +198,41 @@ def rpa_inputs(rng, device, dtype, n_heads=16, head_dim=128, block_size=16,
     return args, n_live, len(segs)
 
 
-def rpa_work(args):
-    """Bytes one attention call must move (q and out once, each KV block
-    its live segments need once, the metadata once) and the operations it
-    must do (4 * D per head per (row, attended kv token): QK^T and PV),
-    from the call's own inputs."""
-    q, k_pool, _, seg_tables, seg_pos, seg_rows = args[:6]
+def paged_work(q, k_pool, tables, seg_pos, seg_rows, meta_bytes):
+    """Bytes and operations one paged-attention call needs, from its own
+    inputs (numpy metadata). Segment ``s`` with ``seg_rows[s] > 0`` holds
+    rows at cache positions ``seg_pos[s] + i``; a row attends every
+    position up to its own, clamped to the table's MAXB * B. Bytes: q and
+    out once, K and V of each distinct (block, offset) position the
+    segments attend once, the table entries they read, and
+    ``meta_bytes`` of other metadata. Operations: 4 * D per head per (row,
+    attended token), QK^T and PV."""
     t, h, d = q.shape
     bs, elem = k_pool.shape[1], q.element_size()
-    tables = seg_tables.cpu().numpy()
-    pos, rows = seg_pos.cpu().numpy(), seg_rows.cpu().numpy()
-    blocks, attended = set(), 0
-    for s in np.flatnonzero(rows > 0):
-        n, pos0 = int(rows[s]), int(pos[s])
-        blocks.update(tables[s, :-(-(pos0 + n) // bs)].tolist())
-        attended += n * pos0 + n * (n + 1) // 2
-    meta_bytes = sum(a.numel() * a.element_size() for a in args[3:])
-    n_bytes = 2 * len(blocks) * bs * h * d * elem + 2 * t * h * d * elem \
-        + meta_bytes
+    cap = bs * tables.shape[1]
+    positions, entries, attended = [np.zeros(0, np.int64)], 0, 0
+    for s in np.flatnonzero(seg_rows > 0):
+        ends = np.minimum(int(seg_pos[s]) + np.arange(1, seg_rows[s] + 1),
+                          cap)
+        blocks = tables[s, :-(-int(ends[-1]) // bs)].astype(np.int64)
+        positions.append((blocks[:, None] * bs
+                          + np.arange(bs)).ravel()[:ends[-1]])
+        entries += len(blocks)
+        attended += int(ends.sum())
+    n_pos = len(np.unique(np.concatenate(positions)))
+    n_bytes = 2 * (n_pos + t) * h * d * elem + 4 * entries + meta_bytes
     return n_bytes, 4 * attended * h * d
+
+
+def rpa_work(args):
+    """:func:`paged_work` of one segmented call: its kernel also reads
+    ``seg_pos`` and ``seg_rows`` and the live slots of ``seg_row_idx``
+    (not ``row_gather``)."""
+    q, k_pool, _, seg_tables, seg_pos, seg_rows = args[:6]
+    pos, rows = seg_pos.cpu().numpy(), seg_rows.cpu().numpy()
+    meta_bytes = 4 * (2 * len(rows) + int(rows.clip(0).sum()))
+    return paged_work(q, k_pool, seg_tables.cpu().numpy(), pos, rows,
+                      meta_bytes)
 
 
 def rpa_bound(args, peaks):
@@ -279,22 +309,173 @@ def phase_kernel(device, peaks, timer):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
+        rel = rel_err(got, want)
         pad_zero = bool((got[n_live:] == 0).all().item())
-        if not (err <= tol[dtype] and pad_zero
+        if not (err <= tol[dtype] and rel <= REL_TOL[dtype] and pad_zero
                 and torch.isfinite(got).all().item()):
             raise AssertionError(
                 f"kernel disagrees with the plain version ({dtype}): max "
-                f"abs err {err} (tol {tol[dtype]}), inactive rows zero: "
+                f"abs err {err} (tol {tol[dtype]}), relative norm err "
+                f"{rel} (limit {REL_TOL[dtype]}), inactive rows zero: "
                 f"{pad_zero}")
         ms, plain_ms = timer.median_ms(kernel), timer.median_ms(plain)
         res = dict(dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
-                   tol=tol[dtype], inactive_rows_zero=pad_zero,
+                   tol=tol[dtype], rel_err=rel, rel_tol=REL_TOL[dtype],
+                   inactive_rows_zero=pad_zero,
                    segments=n_segs, rows=n_live, ms=ms, plain_ms=plain_ms,
                    **rpa_bound(args, peaks), peaks_of=peaks["name"])
         emit("kernel", name="ragged_paged_attention_chunked", **res)
         results[res["dtype"]] = res
         del args
     return results
+
+
+# ------------------------------------------- per-row (decode) attention
+
+def rpa_row_work(q, k_pool, block_tables, seq_lens):
+    """:func:`paged_work` of one per-row call: row ``s`` is the 1-row
+    segment at position ``min(len, MAXB * B) - 1``; the kernel also reads
+    ``seq_lens``."""
+    lens = np.clip(seq_lens.cpu().numpy().astype(np.int64), 0,
+                   k_pool.shape[1] * block_tables.shape[1])
+    return paged_work(q, k_pool, block_tables.cpu().numpy(), lens - 1,
+                      (lens > 0).astype(np.int64), 4 * len(lens))
+
+
+def decode_batch(device, dtype, n_rows=128, heads=16, head_dim=128,
+                 block_size=16, max_blocks=128):
+    """A seeded decode batch at the serving width: lengths uniform in
+    1..2048 plus rows of 0, 2048 and 3000 tokens (3000 attends its whole
+    128-block table), every row's blocks distinct, drawn from a
+    permutation of blocks 1..16,384 of a 16,385-block noise pool; table
+    entries past a row's need are 0, a noise block no row owns."""
+    rng = np.random.default_rng(SEED + 11)
+    cap = block_size * max_blocks
+    lens = np.concatenate([[0, cap, 3000],
+                           rng.integers(1, cap + 1, n_rows - 3)])
+    need = np.minimum(-(-lens // block_size), max_blocks)
+    num_blocks = n_rows * max_blocks + 1
+    perm = rng.permutation(np.arange(1, num_blocks))
+    tables = np.zeros((n_rows, max_blocks), np.int64)
+    at = 0
+    for r, n in enumerate(need):
+        tables[r, :n] = perm[at:at + n]
+        at += n
+    g = torch.Generator(device=device).manual_seed(SEED + 12)
+    randn = lambda *shape: torch.randn(*shape, generator=g, device=device,
+                                       dtype=dtype)
+    pool_shape = (num_blocks, block_size, heads, head_dim)
+    as_i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
+    return (randn(n_rows, heads, head_dim), randn(*pool_shape),
+            randn(*pool_shape), as_i32(tables), as_i32(lens))
+
+
+def row_path(args, launches_of, reset_launches):
+    """``ragged_paged_attention`` called as a user calls it, with the launch
+    counts reset just before and read just after: the kernel must launch
+    once. Returns the output and the launches."""
+    from paddle_tpu_torch.ops import ragged_paged_attention
+
+    reset_launches()
+    out = ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    launches = launches_of()
+    if launches != {"ragged_paged_attention": 1}:
+        raise AssertionError(f"ragged_paged_attention launched {launches}")
+    return out, launches["ragged_paged_attention"]
+
+
+def row_report(what, args, out, timer, peaks):
+    """``out`` (the kernel's) against the plain version: limits, inactive
+    rows exactly zero; then both timed, and the bound of the call."""
+    from paddle_tpu_torch.ops import ragged_paged_attention
+
+    want = ragged_paged_attention(*args, impl="torch")
+    torch.cuda.synchronize()
+    err, rel = agreement(what, out, want)
+    dead = args[4] <= 0
+    if not bool((out[dead] == 0).all().item()):
+        raise AssertionError(f"{what}: inactive rows are not zero")
+    dtype = args[0].dtype
+    bound = bound_of(*rpa_row_work(*args[:2], *args[3:5]), dtype, peaks)
+    ms = timer.median_ms(lambda: ragged_paged_attention(*args, impl="cuda"))
+    plain_ms = timer.median_ms(
+        lambda: ragged_paged_attention(*args, impl="torch"))
+    return dict(dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+                rel_err=rel, tol=TOL[dtype], rel_tol=REL_TOL[dtype],
+                inactive_rows=int(dead.sum().item()),
+                attended_tokens=int(args[4].clamp(
+                    0, args[1].shape[1] * args[3].shape[1]).sum().item()),
+                ms=ms, plain_ms=plain_ms, **bound,
+                x_bound=ms / bound["bound_ms"], library_ms=None,
+                peaks_of=peaks["name"])
+
+
+def phase_decode_batch(device, peaks, timer, launches_of, reset_launches,
+                       **shape):
+    """(b): the per-row kernel on a decode batch that makes the card work,
+    fp32 and bf16 (see :func:`decode_batch`, which takes ``shape``)."""
+    results, launches = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        args = decode_batch(device, dtype, **shape)
+        out, n = row_path(args, launches_of, reset_launches)
+        launches += n
+        res = row_report(f"ragged_paged_attention (decode batch, {dtype})",
+                         args, out, timer, peaks)
+        geometry = dict(rows=int(args[0].shape[0]),
+                        heads=int(args[0].shape[1]),
+                        head_dim=int(args[0].shape[2]),
+                        block_size=int(args[1].shape[1]),
+                        max_blocks=int(args[3].shape[1]),
+                        pool_blocks=int(args[1].shape[0]),
+                        pool_gb=args[1].numel() * args[1].element_size()
+                        / 1e9)
+        emit("decode", part="b_decode_batch", name="ragged_paged_attention",
+             **geometry, **res)
+        results[res["dtype"]] = res
+        del args, out
+    torch.cuda.empty_cache()
+    return results, launches
+
+
+def phase_decode_step(peaks, timer, step_args, launches_of, reset_launches):
+    """(a): the rows of the serve phase's first profiled decode-only step,
+    on that step's layer-0 bf16 pools: the per-row kernel against its
+    plain version and against the segmented kernel's output for the same
+    rows (1-row segments, as the engine packs them), both kernels timed
+    on the same rows."""
+    from paddle_tpu_torch.ops import ragged_paged_attention_chunked
+
+    if step_args is None:
+        raise AssertionError("the serve phase recorded no decode-only step")
+    q, kp, vp, seg_tables, seg_pos, seg_rows, seg_row_idx = step_args[:7]
+    live = seg_rows > 0
+    if not bool((seg_rows[live] == 1).all().item()):
+        raise AssertionError("the recorded step is not decode-only")
+    rows = seg_row_idx[live, 0].long()
+    args = (q[rows].contiguous(), kp, vp, seg_tables[live].contiguous(),
+            (seg_pos[live] + 1).to(torch.int32).contiguous())
+    out, launches = row_path(args, launches_of, reset_launches)
+    res = row_report("ragged_paged_attention (serve decode step)", args, out,
+                     timer, peaks)
+    chunked = lambda: ragged_paged_attention_chunked(
+        *step_args[:8], impl="cuda")
+    row1 = chunked()[rows]
+    torch.cuda.synchronize()
+    err1, rel1 = agreement("ragged_paged_attention vs the segmented kernel",
+                           out, row1)
+    row1_ms = timer.median_ms(chunked)
+    row1_bound = rpa_bound(step_args[:8], peaks)
+    emit("decode", part="a_serve_decode_step", name="ragged_paged_attention",
+         rows=int(rows.numel()), heads=int(q.shape[1]),
+         head_dim=int(q.shape[2]), block_size=int(kp.shape[1]),
+         max_blocks=int(seg_tables.shape[1]), **res,
+         vs_chunked=dict(max_abs_err=err1, rel_err=rel1,
+                         chunked_ms=row1_ms,
+                         chunked_bound_ms=row1_bound["bound_ms"],
+                         chunked_x_bound=row1_ms / row1_bound["bound_ms"],
+                         row_over_chunked=res["ms"] / row1_ms))
+    return launches
 
 
 # -------------------------------------------------------------- the model
@@ -407,12 +588,14 @@ def profile_steps(engine, prompts, peaks):
     decode, time 3 steps plainly and the next 3 under ``torch.profiler``,
     then evict the rest. Attention time is the profiler's kernel time in
     both. The profiler's overhead stays out of every end-to-end number.
-    Returns (mixed step, decode breakdown)."""
+    Returns (mixed step, decode breakdown, the arguments of the first
+    attention call of the first profiled decode-only step)."""
     from paddle_tpu_torch.serving import SamplingParams
 
     sp = SamplingParams(max_new_tokens=64)
     reqs = [engine.submit(p, sp) for p in prompts[:8]]
     plain_ms, profiled_ms, prof, out, mixed = [], [], None, None, None
+    probe = None
     n_steps = 0
     while out is None and engine.scheduler.has_work:
         if n_steps == 3:
@@ -444,7 +627,8 @@ def profile_steps(engine, prompts, peaks):
     if engine.kv.blocks_in_use != 0:
         raise AssertionError("KV blocks leaked in the profiling pass")
     return mixed, out or {
-        "device_time": "not measured (no decode-only window)"}
+        "device_time": "not measured (no decode-only window)"}, (
+        probe.args if probe is not None else None)
 
 
 def profile_one_step(engine, peaks):
@@ -549,7 +733,7 @@ def phase_serve(device, cfg, model, peaks, launches_of, reset_launches):
                              f"{expected} (layers x steps)")
     ttft = [(r.first_token_time - r.submit_time) * 1e3 for r in reqs]
     n_out = sum(len(r.generated) for r in reqs)
-    mixed, breakdown = profile_steps(engine, prompts, peaks)
+    mixed, breakdown, decode_args = profile_steps(engine, prompts, peaks)
     emit("serve", config="gpt3_1p3b", layers=cfg.num_layers,
          dtype="bfloat16", requests=len(reqs), prompt_tokens=int(lens.sum()),
          output_tokens=n_out, steps=n_steps, wall_s=wall,
@@ -558,7 +742,7 @@ def phase_serve(device, cfg, model, peaks, launches_of, reset_launches):
          mixed_step=mixed, decode_step_breakdown=breakdown,
          kv_blocks_peak=engine.kv.blocks_peak,
          peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return launches
+    return launches, decode_args
 
 
 def phase_prefix(device, cfg, model, launches_of, reset_launches):
@@ -1432,14 +1616,20 @@ def main() -> int:
 
     timer = Timer(device)
     kernel = phase_kernel(device, peaks, timer)
+    decode, decode_launches = phase_decode_batch(
+        device, peaks, timer, _build.launches, _build.reset_launches)
     cfg = gpt3_1p3b()
     weights = random_weights(cfg, cfg.num_layers, device)
     phase_model(device, cfg, weights)
     torch.cuda.empty_cache()
     model = build_model(cfg, weights, device, torch.bfloat16)
     del weights
-    serve_launches = phase_serve(device, cfg, model, peaks, _build.launches,
-                                 _build.reset_launches)
+    serve_launches, decode_args = phase_serve(
+        device, cfg, model, peaks, _build.launches, _build.reset_launches)
+    # keeps only the recorded step's q and layer-0 pools alive
+    decode_launches += phase_decode_step(
+        peaks, timer, decode_args, _build.launches, _build.reset_launches)
+    del decode_args
     phase_prefix(device, cfg, model, _build.launches, _build.reset_launches)
     del model
     torch.cuda.empty_cache()
@@ -1465,7 +1655,11 @@ def main() -> int:
         "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
         "paddle_tpu/ops/pallas/ragged_paged_attention.py:228",
         serve_launches["ragged_paged_attention_chunked"],
-        kernel["bfloat16"], None)]
+        kernel["bfloat16"], None), kernel_entry(
+        "ragged_paged_attention",
+        "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
+        "paddle_tpu/ops/pallas/ragged_paged_attention.py:73",
+        decode_launches, decode["bfloat16"], None)]
     for kind, line in (("fwd", 162), ("dq", 277), ("dkv", 316)):
         fa_name = f"flash_attention_{kind}"
         library = (flash["library"]["sdpa_forward_ms"] if kind == "fwd"

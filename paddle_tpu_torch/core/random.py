@@ -13,6 +13,8 @@ from typing import Dict, Optional, Union
 
 import torch
 
+from .device import canonical_device, resolve_device
+
 __all__ = ["seed", "generator", "next_seed"]
 
 _SEED = 0
@@ -28,11 +30,9 @@ def seed(s: int) -> None:
 
 def generator(device: Optional[Union[str, torch.device]] = None
               ) -> torch.Generator:
-    """The generator of ``device`` (the CPU by default), seeded from the
-    global seed at first use."""
-    dev = torch.device("cpu" if device is None else device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    """The generator of ``device`` (the current card by default; raises
+    without one), seeded from the global seed at first use."""
+    dev = canonical_device(resolve_device(device))
     key = str(dev)
     gen = _GENERATORS.get(key)
     if gen is None:
@@ -43,7 +43,8 @@ def generator(device: Optional[Union[str, torch.device]] = None
 
 def next_seed(device: Optional[Union[str, torch.device]] = None) -> int:
     """A fresh int32 seed in ``[0, 2**31 - 1)`` drawn from ``device``'s
-    generator (the flash-attention dropout seed of a step)."""
+    generator (the flash-attention dropout seed of a step); ``device``
+    defaults to the current card, as in :func:`generator`."""
     gen = generator(device)
     return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
                              device=gen.device).item())

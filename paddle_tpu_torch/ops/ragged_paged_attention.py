@@ -1,14 +1,18 @@
-"""Segmented ragged paged attention: a hand-written CUDA kernel for Hopper
-and its plain PyTorch version.
+"""Ragged paged attention: hand-written CUDA kernels for Hopper and their
+plain PyTorch versions.
 
 The serving engine keeps every sequence's K/V in fixed-size token blocks
 scattered across a preallocated pool; a block table maps a sequence's
-logical positions to pool blocks. One step's token rows are grouped into
-*segments* — up to ``q_tile`` consecutive rows of one sequence (a prefill
-chunk, or a single decode row) sharing one block-table row — so each KV
-block is read once per segment instead of once per row. Row ``i`` of a
-segment sits at cache position ``seg_pos + i`` and attends every cached
-position ``<= seg_pos + i`` (causal inside the tile by construction).
+logical positions to pool blocks. Two entry points read the pools through
+the tables:
+
+**Segmented** (:func:`ragged_paged_attention_chunked`, the serving path).
+One step's token rows are grouped into *segments* — up to ``q_tile``
+consecutive rows of one sequence (a prefill chunk, or a single decode row)
+sharing one block-table row — so each KV block is read once per segment
+instead of once per row. Row ``i`` of a segment sits at cache position
+``seg_pos + i`` and attends every cached position ``<= seg_pos + i``
+(causal inside the tile by construction).
 
 Shape contract (the layout of ``paddle_tpu``'s
 ``ragged_paged_attention_chunked``, so the two are compared like for
@@ -24,12 +28,28 @@ like)::
     row_gather   [T]       int32  inverse map: seg * TQ + offset per row
     -> out       [T, H, D]        rows of inactive segments are all-zero
 
+**Per row** (:func:`ragged_paged_attention`, the decode shape; the
+counterpart of ``paddle_tpu``'s ``ragged_paged_attention``). One query
+token per row; row ``s`` attends cache positions
+``p < min(seq_lens[s], MAXB * B)``, position ``p`` at pool block
+``block_tables[s, p // B]``, offset ``p % B``, with no causal mask inside
+the row. Table entries past a row's need are never read by the kernel
+(the plain version gathers them, so they must be valid pool indices: the
+JAX convention pads with 0)::
+
+    q            [S, H, D]
+    k_pool       [N, B, H, D]
+    v_pool       [N, B, H, D]
+    block_tables [S, MAXB] int32
+    seq_lens     [S]       int32  (<= 0 = inactive)
+    -> out       [S, H, D]        rows with seq_len <= 0 are all-zero
+
 ``impl``: ``"cuda"`` launches the kernel in
 ``csrc/ragged_paged_attention.cu`` (fp32 or bf16, fp32 accumulation);
-``"torch"`` runs the plain version below, the counterpart of the
-segmented XLA reference; ``"auto"`` picks ``"cuda"`` for a CUDA tensor and
-``"torch"`` for a CPU tensor. Nothing falls back: a kernel that cannot
-build or launch raises.
+``"torch"`` runs the plain version below, the counterpart of the XLA
+reference; ``"auto"`` picks ``"cuda"`` for a CUDA tensor and ``"torch"``
+for a CPU tensor. Nothing falls back: a kernel that cannot build or
+launch raises.
 """
 from __future__ import annotations
 
@@ -41,10 +61,12 @@ import torch
 from . import _build
 
 __all__ = ["ragged_paged_attention_chunked",
-           "ragged_paged_attention_chunked_torch", "check_kernel_geometry",
-           "KERNEL_NAME"]
+           "ragged_paged_attention_chunked_torch", "ragged_paged_attention",
+           "ragged_paged_attention_torch", "check_kernel_geometry",
+           "KERNEL_NAME", "ROW_KERNEL_NAME"]
 
 KERNEL_NAME = "ragged_paged_attention_chunked"
+ROW_KERNEL_NAME = "ragged_paged_attention"
 _SOURCE = "ragged_paged_attention"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
@@ -101,6 +123,9 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.rpa_chunked_launch.argtypes = [p] * 8 + [i] * 6 + [
             ctypes.c_float, i, p]
         lib.rpa_chunked_launch.restype = ctypes.c_int
+        lib.rpa_row_launch.argtypes = [p] * 6 + [i] * 5 + [
+            ctypes.c_float, i, p]
+        lib.rpa_row_launch.restype = ctypes.c_int
         lib.rpa_error_string.argtypes = [i]
         lib.rpa_error_string.restype = ctypes.c_char_p
     return lib
@@ -122,11 +147,16 @@ def _check_cuda_args(q, k_pool, v_pool, meta):
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:  # the kernels copy 16 bytes at a time
+            raise ValueError(f"{name} must be 16-byte aligned, got address "
+                             f"{t.data_ptr():#x}")
     for name, t in meta.items():
         if t.dtype != torch.int32 or t.device != q.device \
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int32 tensor on "
-                             f"{q.device}")
+                             f"{q.device}, got {t.dtype} on {t.device}"
+                             + ("" if t.is_contiguous()
+                                else " (not contiguous)"))
 
 
 def _rpa_chunked_cuda(q, k_pool, v_pool, seg_tables, seg_pos, seg_rows,
@@ -180,3 +210,77 @@ def ragged_paged_attention_chunked(q, k_pool, v_pool, seg_tables, seg_pos,
             row_gather, scale)
     return _rpa_chunked_cuda(q, k_pool, v_pool, seg_tables, seg_pos,
                              seg_rows, seg_row_idx, float(scale))
+
+
+def ragged_paged_attention_torch(q, k_pool, v_pool, block_tables, seq_lens,
+                                 scale: Optional[float] = None):
+    """Plain PyTorch version of the per-row attention (the counterpart of
+    the JAX package's ``ragged_paged_attention_reference``): gather each
+    row's whole table once, mask the positions at or past the row's
+    length, full fp32 softmax. Rows with ``seq_len <= 0`` come back exactly
+    zero. Takes any head dim and dtype."""
+    n_rows, h, d = q.shape
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    max_blocks = block_tables.shape[1]
+    n_pos = max_blocks * k_pool.shape[1]
+    tables = block_tables.long()
+    k = k_pool[tables].reshape(n_rows, n_pos, h, d).float()  # [S, L, H, D]
+    v = v_pool[tables].reshape(n_rows, n_pos, h, d).float()
+    scores = torch.einsum("shd,sthd->sht", q.float() * scale, k)
+    lens = seq_lens.long()
+    valid = torch.arange(n_pos, device=q.device)[None, :] < lens[:, None]
+    scores = scores.masked_fill(~valid[:, None, :], float("-inf"))
+    m = scores.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("sht,sthd->shd", p, v) / l.clamp_min(1e-30)
+    out = torch.where((lens > 0)[:, None, None], out, torch.zeros_like(out))
+    return out.to(q.dtype)
+
+
+def _rpa_row_cuda(q, k_pool, v_pool, block_tables, seq_lens, scale: float):
+    _check_cuda_args(q, k_pool, v_pool, dict(block_tables=block_tables,
+                                             seq_lens=seq_lens))
+    check_kernel_geometry(q.shape[2], 1)
+    n_rows, h, d = q.shape
+    if block_tables.dim() != 2 or block_tables.shape[0] != n_rows \
+            or tuple(seq_lens.shape) != (n_rows,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} and "
+                         f"seq_lens {tuple(seq_lens.shape)} must be "
+                         f"[{n_rows}, MAXB] and [{n_rows}]")
+    if h > 65535:
+        raise ValueError(f"kernel supports at most 65535 heads, got {h}")
+    out = torch.empty_like(q)
+    if n_rows == 0:
+        return out
+    lib = _kernel_lib()
+    with torch.cuda.device(q.device):  # launch on q's card, not the current
+        err = lib.rpa_row_launch(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            n_rows, h, d, k_pool.shape[1], block_tables.shape[1], scale,
+            _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{ROW_KERNEL_NAME} kernel launch failed: "
+            f"{lib.rpa_error_string(err).decode()} (cudaError {err})")
+    _build.count_launch(ROW_KERNEL_NAME)
+    return out
+
+
+def ragged_paged_attention(q, k_pool, v_pool, block_tables, seq_lens,
+                           scale: Optional[float] = None, impl: str = "auto"):
+    """Per-row ragged paged attention over a block-paged KV pool (see the
+    module doc): one query token per row, ``scale`` ``1 / sqrt(D)`` by
+    default. ``impl`` is ``"auto" | "cuda" | "torch"``; the JAX package's
+    ``"pallas"`` and ``"xla"`` are not routes here and raise."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    if _build.pick_impl(impl, q) == "torch":
+        return ragged_paged_attention_torch(q, k_pool, v_pool, block_tables,
+                                            seq_lens, scale)
+    return _rpa_row_cuda(q, k_pool, v_pool, block_tables, seq_lens,
+                         float(scale))

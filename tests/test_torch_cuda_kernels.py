@@ -12,7 +12,8 @@ import torch
 
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops.ragged_paged_attention import (
-    KERNEL_NAME, ragged_paged_attention_chunked)
+    KERNEL_NAME, ROW_KERNEL_NAME, ragged_paged_attention,
+    ragged_paged_attention_chunked)
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 
@@ -83,6 +84,7 @@ def test_kernel_matches_plain(card, segs, n_pad, heads, hdim, bs, maxb, tq,
     assert _build.launches()[KERNEL_NAME] == before + 1
     assert got.dtype == dtype and got.shape == want.shape
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert rel_err(got, want) <= REL_TOL[dtype], rel_err(got, want)
     assert torch.all(got[n_live:] == 0)
 
 
@@ -138,6 +140,156 @@ def test_engine_kernel_path_matches_plain_path(card):
             assert steps == 0
         assert engine.kv.blocks_in_use == 0
     assert outs["cuda"] == outs["torch"]
+
+
+# ------------------------------------------- per-row (decode) attention
+
+def row_inputs(lens, heads, hdim, bs, maxb, dtype, device, seed):
+    """A decode batch: each row's blocks distinct, drawn from blocks 1.. of
+    a noise pool; table entries past a row's need point at block 0, a
+    noise block no row owns (the kernel must not read them)."""
+    rs = np.random.RandomState(seed)
+    need = [min(-(-max(n, 0) // bs), maxb) for n in lens]
+    num_blocks = sum(need) + 1
+    perm = rs.permutation(np.arange(1, num_blocks)).astype(np.int32)
+    tables = np.zeros((len(lens), maxb), np.int32)
+    at = 0
+    for s, n in enumerate(need):
+        tables[s, :n] = perm[at:at + n]
+        at += n
+    f = lambda *shape: torch.from_numpy(
+        rs.randn(*shape).astype(np.float32)).to(device, dtype)
+    i = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(device)
+    return (f(len(lens), heads, hdim), f(num_blocks, bs, heads, hdim),
+            f(num_blocks, bs, heads, hdim), i(tables), i(lens))
+
+
+def as_segments(tables, lens):
+    """The per-row batch as 1-row segments of the chunked kernel (TQ = 1,
+    seg_pos = len - 1; rows of length 0 are inactive segments)."""
+    n = lens.shape[0]
+    rows = torch.arange(n, dtype=torch.int32, device=lens.device)
+    return (tables, (lens - 1).clamp_min(0), (lens > 0).int(), rows[:, None],
+            rows)
+
+
+ROW_MIXES = [
+    # (lens, heads, hdim, block, maxb)
+    ([5, 0, 17, 1, 64], 2, 32, 4, 16),
+    ([0, 1, 15, 16, 17, 2047, 2048, 3000], 16, 128, 16, 128),  # full width
+    ([33, -4, 100, 64, 65, 128], 4, 64, 16, 8),
+    ([129, 7, 300], 1, 128, 64, 4),          # big blocks, one clamped row
+    ([3, 9, 16], 3, 32, 1, 16),              # one token a block
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lens,heads,hdim,bs,maxb", ROW_MIXES)
+def test_row_kernel_matches_plain(card, lens, heads, hdim, bs, maxb, dtype):
+    args = row_inputs(lens, heads, hdim, bs, maxb, dtype, card,
+                      seed=hdim + len(lens))
+    before = _build.launches().get(ROW_KERNEL_NAME, 0)
+    got = ragged_paged_attention(*args)  # auto -> cuda on the card
+    want = ragged_paged_attention(*args, impl="torch")
+    torch.cuda.synchronize()
+    assert _build.launches()[ROW_KERNEL_NAME] == before + 1
+    _close(got, want, dtype)
+    dead = torch.tensor(lens, device=card) <= 0
+    assert torch.all(got[dead] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_kernel_matches_chunked_kernel(card, dtype):
+    """Row 2's kernel and row 1's kernel on the same full-width decode
+    batch, given to row 1 as 1-row segments."""
+    lens = [1, 15, 16, 17, 300, 0, 2047, 2048, 1000, 33]
+    q, kp, vp, tables, seq_lens = row_inputs(lens, 16, 128, 16, 128, dtype,
+                                             card, seed=5)
+    got = ragged_paged_attention(q, kp, vp, tables, seq_lens, impl="cuda")
+    want = ragged_paged_attention_chunked(
+        q, kp, vp, *as_segments(tables, seq_lens), impl="cuda")
+    torch.cuda.synchronize()
+    _close(got, want, dtype)
+    assert torch.all(got[5] == 0) and torch.all(want[5] == 0)
+
+
+def test_row_kernel_rejects_what_it_does_not_take(card):
+    q, kp, vp, tables, lens = row_inputs([3, 9], 2, 32, 4, 4,
+                                         torch.float32, card, seed=1)
+    call = ragged_paged_attention
+    with pytest.raises(ValueError, match="contiguous"):
+        call(q.transpose(0, 1).contiguous().transpose(0, 1), kp, vp, tables,
+             lens)
+    with pytest.raises(ValueError, match="got torch.float16"):
+        call(q.half(), kp.half(), vp.half(), tables, lens)
+    with pytest.raises(ValueError, match="share a dtype"):
+        call(q, kp.bfloat16(), vp.bfloat16(), tables, lens)
+    with pytest.raises(ValueError, match="int64"):
+        call(q, kp, vp, tables.long(), lens)
+    with pytest.raises(ValueError, match="cpu"):
+        call(q, kp, vp, tables, lens.cpu())
+    small = [t[..., :16].contiguous() for t in (q, kp, vp)]
+    with pytest.raises(ValueError, match="head_dim .* got 16"):
+        call(*small, tables, lens)
+    with pytest.raises(ValueError, match="seq_lens"):
+        call(q, kp, vp, tables, lens[:1])
+    empty = call(q[:0], kp, vp, tables[:0], lens[:0])
+    assert empty.shape == (0, 2, 32)
+
+
+# each paged kernel with its second KV block left out, for every row or
+# segment that has two or more: (kernel, the line, the line broken)
+PAGED_MUTATIONS = {
+    "chunked": ("rpa_chunked_kernel",
+                "for (int b = 0; b < n_blocks; ++b) {",
+                "for (int b = 0; b < n_blocks; "
+                "b += 1 + (b == 0 && n_blocks > 1)) {"),
+    "row": ("rpa_row_kernel", "const bool live = tok < n_tok;",
+            "const bool live = tok < n_tok && (kv_len <= block_size "
+            "|| (c0 + tok) / block_size != 1);"),
+}
+
+
+def test_paged_limits_reject_a_kernel_that_skips_a_block(card, tmp_path,
+                                                        monkeypatch):
+    """The bf16 limits tell a right paged kernel from a broken one: each is
+    rebuilt with the second KV block of every row (segment) of two or more
+    blocks left out, and on a full-width decode batch (H 16, D 128, B 16,
+    MAXB 128, 64 rows of 1..2048 tokens) its output must miss REL_TOL,
+    while the right kernel meets it. Prints both readings."""
+    import ctypes
+    import subprocess
+
+    lens = np.random.RandomState(3).randint(1, 2049, 64).tolist()
+    q, kp, vp, tables, seq_lens = row_inputs(lens, 16, 128, 16, 128,
+                                             torch.bfloat16, card, seed=23)
+    segs = as_segments(tables, seq_lens)
+    run = {"row": lambda: ragged_paged_attention(q, kp, vp, tables,
+                                                 seq_lens, impl="cuda"),
+           "chunked": lambda: ragged_paged_attention_chunked(
+               q, kp, vp, *segs, impl="cuda")}
+    want = ragged_paged_attention(q, kp, vp, tables, seq_lens, impl="torch")
+    right = {kind: rel_err(fn(), want) for kind, fn in run.items()}
+    procs = {}
+    for kind, (kernel, line, broken) in PAGED_MUTATIONS.items():
+        src = tmp_path / f"{kind}.cu"
+        src.write_text(_mutated_source(kernel, line, broken,
+                                       "ragged_paged_attention"))
+        lib = tmp_path / f"lib{kind}.so"
+        procs[kind] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    broken_err = {}
+    for kind, (lib, proc) in procs.items():
+        out = proc.communicate()[0]
+        assert proc.returncode == 0, out.decode()[-2000:]
+        monkeypatch.setitem(_build._LIBS, "ragged_paged_attention",
+                            ctypes.CDLL(str(lib)))
+        broken_err[kind] = rel_err(run[kind](), want)
+    print(f"paged bf16 rel err, right kernels: {right}; kernels missing "
+          f"one KV block: {broken_err}; limit {REL_TOL[torch.bfloat16]}")
+    for kind in PAGED_MUTATIONS:
+        assert right[kind] <= REL_TOL[torch.bfloat16] < broken_err[kind]
 
 
 # ------------------------------------------------------- flash attention
