@@ -51,10 +51,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    against their plain PyTorch versions at the training path's shapes
    (BH=128, S=1024, D=128, causal) in fp32 and bf16, plus a bf16 dropout
    case: max abs error and relative norm error against their limits,
-   median times over >= 20
-   launches with the L2 cache flushed, bytes, operations and the bound;
+   median times over >= 20 launches with the L2 cache flushed, bytes,
+   operations, the bound, and each kernel's ptxas registers and spills;
    ``flash_library`` times torch's scaled_dot_product_attention forward
-   and backward on the same bf16 inputs as the yardstick.
+   and backward on the same bf16 inputs as the yardstick (25 launches
+   each, the backward three times over) and names the backend it ran.
 8. ``xent`` — the two fused softmax cross-entropy kernels (forward,
    backward) against their plain PyTorch versions at the training path's
    shapes (8 x 1024 rows, V=50304) in fp32 and bf16: errors against the
@@ -930,16 +931,50 @@ def bound_of(n_bytes, n_ops, dtype, peaks):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+# the kernel each flash entry point launches at D = 128, by dtype
+FLASH_KERNEL_OF = {
+    ("fwd", torch.bfloat16): "fa_fwd_wgmma_kernel",
+    ("dq", torch.bfloat16): "fa_dq_mma_kernel",
+    ("dkv", torch.bfloat16): "fa_dkv_wgmma_kernel",
+    ("fwd", torch.float32): "fa_fwd_kernel",
+    ("dq", torch.float32): "fa_dq_kernel",
+    ("dkv", torch.float32): "fa_dkv_kernel",
+}
+
+
+def ptxas_of(report: str, kernel: str, head_dim: int):
+    """Registers and spill bytes of ``kernel``'s instantiation at
+    ``head_dim``, read from a ``_build.ptxas_report`` (mangled names:
+    ``<kernel>I...Li<head_dim>E``)."""
+    found, cur = {}, False
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            at = name.find(kernel + "I")
+            cur = at >= 0 and f"Li{head_dim}E" in name[at:]
+        elif cur and "spill stores" in line:
+            nums = [int(x) for x in line.split() if x.isdigit()]
+            found.update(spill_store_bytes=nums[1], spill_load_bytes=nums[2])
+        elif cur and "Used" in line and "registers" in line:
+            found["registers"] = int(line.split("Used")[1].split()[0])
+            cur = False
+    return found
+
+
 def phase_flash(device, peaks, timer, batch=8, heads=16, s=1024, d=128):
     """The three flash-attention kernels against their plain versions at
     the training path's shapes (B=8, H=16 -> BH=128, S=1024, D=128,
     causal), fp32 and bf16, plus a bf16 dropout case; median times with
-    the L2 cache flushed; scaled_dot_product_attention as the yardstick."""
+    the L2 cache flushed; each kernel's ptxas registers and spills;
+    scaled_dot_product_attention as the yardstick, with the backend it
+    ran."""
+    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops.flash_attention import (flash_dkv, flash_dq,
                                                       flash_fwd)
 
     bh, causal = batch * heads, True
     scale = 1.0 / d ** 0.5
+    report = _build.ptxas_report("flash_attention")
     g = torch.Generator(device=device).manual_seed(SEED + 5)
     results = {}
     for dtype, dropout in ((torch.float32, 0.0), (torch.bfloat16, 0.0),
@@ -966,11 +1001,13 @@ def phase_flash(device, peaks, timer, batch=8, heads=16, s=1024, d=128):
             torch.cuda.synchronize()
             errs = [agreement(f"flash {kind} ({tag})", a, b)
                     for a, b in zip(got, want)]
-            res = dict(kind=kind, case=tag,
+            kernel = FLASH_KERNEL_OF[(kind, dtype)]
+            res = dict(kind=kind, case=tag, kernel=kernel,
                        max_abs_err=max(e for e, _ in errs),
                        rel_err=max(r for _, r in errs), tol=TOL[dtype],
                        rel_tol=REL_TOL[dtype], bh=bh, seq=s, head_dim=d,
-                       causal=causal, dropout=dropout)
+                       causal=causal, dropout=dropout,
+                       ptxas=ptxas_of(report, kernel, d))
             if not dropout:
                 res.update(ms=timer.median_ms(lambda: call("cuda")),
                            plain_ms=timer.median_ms(lambda: call("torch")),
@@ -990,7 +1027,11 @@ def phase_flash(device, peaks, timer, batch=8, heads=16, s=1024, d=128):
 def sdpa_yardstick(q, k, v, do, timer, batch):
     """torch's scaled_dot_product_attention on the same bf16 inputs
     ([B, H, S, D] views of the [BH, S, D] tensors), forward alone and its
-    backward as one figure. Timed here only; the port never calls it."""
+    backward as one figure, each the median of TIME_REPS launches with the
+    L2 flushed; the backward timed three times over to show its spread.
+    Names the backend: which SDPA backends are enabled, and the device
+    kernels one forward and one backward ran (profiler). Timed here only;
+    the port never calls it."""
     import torch.nn.functional as F
 
     shape = (batch, q.shape[0] // batch) + tuple(q.shape[1:])
@@ -1001,8 +1042,28 @@ def sdpa_yardstick(q, k, v, do, timer, batch):
     out = fwd()
     bwd = lambda: torch.autograd.grad(out, (qs, ks, vs), gout,
                                       retain_graph=True)
+    kernels = {}
+    for what, fn in (("forward", fwd), ("backward", bwd)):
+        fn()
+        torch.cuda.synchronize()
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels[what] = sorted({
+            e.name[:100] for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA})
+    backends = {name: getattr(torch.backends.cuda, f"{name}_sdp_enabled")()
+                for name in ("flash", "mem_efficient", "cudnn", "math")}
+    backward_runs = [timer.median_ms(bwd) for _ in range(3)]
     return dict(sdpa_forward_ms=timer.median_ms(fwd),
-                sdpa_backward_ms=timer.median_ms(bwd))
+                sdpa_backward_ms=backward_runs[0],
+                sdpa_backward_ms_runs=backward_runs, reps=TIME_REPS,
+                backends_enabled=backends,
+                forward_kernels=kernels["forward"],
+                backward_kernels=kernels["backward"])
 
 
 # ------------------------------------------------ softmax cross-entropy

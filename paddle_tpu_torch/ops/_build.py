@@ -137,4 +137,4 @@ def ptxas_report(name: str) -> str:
     if not log.exists():
         return ""
     return "\n".join(line for line in log.read_text().splitlines()
-                     if "ptxas" in line)
+                     if "ptxas" in line or "spill" in line)

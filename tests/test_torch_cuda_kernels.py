@@ -393,14 +393,19 @@ def test_flash_kernels_reject_what_they_do_not_take(card):
 
 
 MUTATIONS = {
-    # kind: (kernel, loop it walks, the loop with one tile left out)
-    "fwd": ("fa_fwd_mma_kernel", "for (int t = 0; t <= last; ++t) {",
-            "for (int t = (last > 0); t <= last; ++t) {"),
+    # kind: (kernel, a line of its loop, the line with one tile left out)
+    # The wgmma kernels' consumers leave the tile out; the ring's loads
+    # and releases go on, so the pipeline keeps turning.
+    "fwd": ("fa_fwd_wgmma_kernel",
+            "if (live && !(causal && c0 > row0 + kWgRows - 1 + offset))",
+            "if (live && (t > 0 || n_t == 1) "
+            "&& !(causal && c0 > row0 + kWgRows - 1 + offset))"),
     "dq": ("fa_dq_mma_kernel", "for (int t = 0; t <= last; ++t) {",
            "for (int t = (last > 0); t <= last; ++t) {"),
-    "dkv": ("fa_dkv_mma_kernel",
-            "for (int r0 = 0; r0 < sq; r0 += kQTileKV) {",
-            "for (int r0 = 0; r0 < sq - kQTileKV; r0 += kQTileKV) {"),
+    "dkv": ("fa_dkv_wgmma_kernel",
+            "if (live && !(causal && r0 + kTile - 1 + offset < col0))",
+            "if (live && (i < n_t - 1 || n_t == 1) "
+            "&& !(causal && r0 + kTile - 1 + offset < col0))"),
 }
 
 
@@ -429,9 +434,10 @@ def test_flash_limits_reject_a_kernel_that_skips_a_tile(card, tmp_path,
                                                        monkeypatch):
     """The bf16 limits tell a right kernel from a broken one: each
     tensor-core kernel is rebuilt with one tile of its loop left out (kv
-    tile 0 for the forward and dQ, the last q tile for dK/dV), and at the
-    training path's sequence length and head size its result must miss
-    REL_TOL, while the right kernel meets it. Prints both readings."""
+    tile 0 for the forward and dQ, the last q tile for dK/dV, wherever the
+    loop has more than one), and at the training path's sequence length
+    and head size its result must miss REL_TOL, while the right kernel
+    meets it. Prints both readings."""
     import ctypes
     import subprocess
 
@@ -462,6 +468,52 @@ def test_flash_limits_reject_a_kernel_that_skips_a_tile(card, tmp_path,
           f"one tile: {broken_err}; limit {REL_TOL[torch.bfloat16]}")
     for kind in MUTATIONS:
         assert right[kind] <= REL_TOL[torch.bfloat16] < broken_err[kind]
+
+
+def test_flash_dropout_call_makes_no_host_sync(card):
+    """A dropout call of ``scaled_dot_product_attention`` on the flash
+    route, forward and backward, runs with every device-to-host sync made
+    an error: the dropout seed is drawn on the host."""
+    from paddle_tpu_torch.core import random as rng
+    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+    from paddle_tpu_torch.ops.flash_attention import KERNEL_NAMES
+
+    g = torch.Generator(device=card).manual_seed(5)
+    x = [torch.randn(2, 256, 4, 64, generator=g, device=card)
+         .to(torch.bfloat16).requires_grad_(True) for _ in range(3)]
+    call = lambda: scaled_dot_product_attention(*x, dropout_p=0.1,
+                                                is_causal=True)
+    call().sum().backward()  # builds and loads the kernels first
+    torch.cuda.synchronize()
+    rng.seed(0)
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = call()
+        out.backward(torch.ones_like(out))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert _build.launches() == {name: 1 for name in KERNEL_NAMES}
+    assert torch.isfinite(out).all()
+
+
+def test_flash_route_raises_for_head_dims_past_128(card):
+    """Head dims above 128 pass the reference's gate (up to 512), so the
+    flash route takes them, but the kernels cover only 64 and 128: the
+    call raises rather than run something else, until they do."""
+    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+    from paddle_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_fwd)
+
+    q = torch.zeros(1, 256, 256, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim .* got 256"):
+        flash_fwd(q, q, q, True, 256 ** -0.5)
+    x = torch.zeros(1, 256, 2, 200, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim .* got 256"):
+        flash_attention(x, x, x, causal=True)
+    with pytest.raises(ValueError, match="head_dim .* got 256"):
+        scaled_dot_product_attention(x, x, x, is_causal=True)
 
 
 # ------------------------------------------------ block-sparse attention

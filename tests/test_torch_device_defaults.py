@@ -5,6 +5,8 @@ and ``core.random.next_seed`` resolve ``device=None`` to the current card,
 as every entry point of the port does, and raise where there is none
 rather than carry on quietly on the CPU. Given ``device="cpu"`` they work
 as before, and a layer draws the same initial values from a fixed seed.
+Dropout seeds are drawn on the host from a generator of their own per
+device: reproducible from ``seed(s)``, and no card is touched to draw one.
 """
 import math
 
@@ -69,3 +71,48 @@ def test_cpu_layers_draw_the_same_numbers_from_a_seed():
     rng.seed(7)
     assert rng.next_seed("cpu") == int(torch.randint(
         0, 2 ** 31 - 1, (1,), generator=torch.Generator().manual_seed(7)))
+
+
+# ------------------------------------------------ dropout seeds (host side)
+
+@pytest.mark.parametrize("s", [0, 7, 2 ** 31 - 5])
+def test_dropout_seed_stream_is_reproducible(s):
+    """The same ``seed(s)`` gives the same dropout seeds, for every device:
+    the stream of ``torch.Generator().manual_seed(s)`` on the host."""
+    def draw(device, n=5):
+        return [rng.next_seed(device) for _ in range(n)]
+
+    rng.seed(s)
+    first = {dev: draw(dev) for dev in ("cuda:0", "cpu")}
+    rng.seed(s)
+    again = {dev: draw(dev) for dev in ("cpu", "cuda:0")}
+    g = torch.Generator().manual_seed(s)
+    want = [int(torch.randint(0, 2 ** 31 - 1, (1,), generator=g))
+            for _ in range(5)]
+    assert first == again == {"cuda:0": want, "cpu": want}
+    rng.seed(s + 1)
+    assert draw("cuda:0") != want
+
+
+def test_dropout_seed_for_a_card_reads_nothing_from_it(monkeypatch):
+    """``next_seed("cuda:0")`` works on a machine without a card: the seed
+    is drawn on the host, so no tensor is made on the card and nothing is
+    read back from it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng.seed(3)
+    seeds = [rng.next_seed("cuda:0"), rng.next_seed(torch.device("cuda", 0))]
+    assert all(isinstance(x, int) and 0 <= x < 2 ** 31 - 1 for x in seeds)
+    assert seeds[0] != seeds[1]
+
+
+def test_dropout_seeds_do_not_move_with_parameter_draws():
+    """Initialising layers between two steps leaves the dropout seeds
+    where they were: the two draw from separate generators."""
+    rng.seed(11)
+    plain = [rng.next_seed("cpu") for _ in range(3)]
+    rng.seed(11)
+    mixed = []
+    for _ in range(3):
+        Linear(16, 16, device="cpu")
+        mixed.append(rng.next_seed("cpu"))
+    assert mixed == plain

@@ -39,6 +39,13 @@ CASES = [
     # mode cannot lower the dropout mask's program_id inside its causal
     # branch (pl.when); causal dropout is held kernel-vs-plain on the card.
     (1, 256, 256, 2, 64, False, 0.5),
+    # the shapes the 128-row blocks of the card's bf16 kernels stress
+    (1, 256, 256, 2, 128, True, 0.0),    # the training path's head dim
+    (1, 256, 256, 2, 96, False, 0.0),    # D zero-padded to 128
+    (1, 384, 384, 2, 64, True, 0.0),     # an odd count of 128-row tiles
+    (1, 256, 384, 2, 64, True, 0.0),     # causal offset 128
+    (1, 384, 256, 2, 64, False, 0.0),    # sq > sk, non-causal
+    (1, 256, 256, 2, 128, False, 0.3),   # dropout at D = 128
 ]
 
 
@@ -100,6 +107,61 @@ def test_dropout_keep_bits_equal_the_reference(seed, rate):
                            torch.from_numpy(eye), dropout=rate, seed=seed)
     np.testing.assert_array_equal(
         port.transpose(1, 2).reshape(b * h, s, s).numpy() != 0, want)
+
+
+TWIN_CASES = [
+    # (bh, sq, sk, d, causal, dropout): 64-multiples the reference's gate
+    # refuses but the card's kernels take, so only the plain versions
+    # they are held to stand for them on the CPU
+    (1, 192, 320, 128, False, 0.5),
+    (1, 192, 320, 64, True, 0.0),     # causal offset 128
+    (2, 64, 192, 64, True, 0.3),      # one 64-row tile, offset 128
+    (2, 320, 128, 128, False, 0.0),   # sq > sk, odd count of 64-row tiles
+    (1, 128, 128, 64, True, 0.9),
+    (3, 64, 64, 128, False, 0.0),
+]
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal,dropout", TWIN_CASES)
+def test_plain_versions_match_float64_autograd(bh, sq, sk, d, causal,
+                                               dropout):
+    """The plain forward, dQ and dK/dV (the card kernels' twins) against
+    autograd through a float64 softmax attention that drops the same
+    entries: out, lse and the q/k/v gradients."""
+    from paddle_tpu_torch.ops.flash_attention import (flash_dkv_torch,
+                                                      flash_dq_torch,
+                                                      flash_fwd_torch)
+
+    rs = np.random.RandomState(sq + sk + d)
+    q, k, v, do = (torch.from_numpy(rs.randn(bh, n, d).astype(np.float32))
+                   for n in (sq, sk, sk, sq))
+    scale, seed = 1.0 / d ** 0.5, 77
+    out, lse = flash_fwd_torch(q, k, v, causal, scale, dropout, seed)
+    delta = (do * out).sum(-1)
+    dq = flash_dq_torch(q, k, v, do, lse, delta, causal, scale, dropout,
+                        seed)
+    dk, dv = flash_dkv_torch(q, k, v, do, lse, delta, causal, scale,
+                             dropout, seed)
+
+    q64, k64, v64 = (x.double().requires_grad_(True) for x in (q, k, v))
+    s = q64 @ k64.transpose(-1, -2) * scale
+    if causal:
+        rows = torch.arange(sq)[:, None] + (sk - sq)
+        s = s.masked_fill(rows < torch.arange(sk)[None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    if dropout:
+        keep = dropout_keep(seed, bh, sq, sk, dropout)
+        p = torch.where(keep, p / (1.0 - dropout), torch.zeros_like(p))
+    want = p @ v64
+    want.backward(do.double())
+    np.testing.assert_allclose(out.numpy(), want.detach().numpy(),
+                               atol=2e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(),
+                               torch.logsumexp(s, -1).detach().numpy(),
+                               atol=2e-5, rtol=0)
+    for got, ref in ((dq, q64), (dk, k64), (dv, v64)):
+        np.testing.assert_allclose(got.numpy(), ref.grad.numpy(), atol=1e-4,
+                                   rtol=0)
 
 
 def test_supports_is_the_reference_gate():
