@@ -934,7 +934,7 @@ def bound_of(n_bytes, n_ops, dtype, peaks):
 # the kernel each flash entry point launches at D = 128, by dtype
 FLASH_KERNEL_OF = {
     ("fwd", torch.bfloat16): "fa_fwd_wgmma_kernel",
-    ("dq", torch.bfloat16): "fa_dq_mma_kernel",
+    ("dq", torch.bfloat16): "fa_dq_wgmma_kernel",
     ("dkv", torch.bfloat16): "fa_dkv_wgmma_kernel",
     ("fwd", torch.float32): "fa_fwd_kernel",
     ("dq", torch.float32): "fa_dq_kernel",
@@ -1391,7 +1391,8 @@ def phase_layer_norm(device, peaks, timer, launches_of, reset_launches,
     fused_layer_norm forward and backward through autograd once, kernel
     against plain route: the output and the three gradients must agree."""
     import torch.nn.functional as TF
-    from paddle_tpu_torch.ops.layer_norm import fused_layer_norm, ln_fwd
+    from paddle_tpu_torch.ops.layer_norm import (_plan, fused_layer_norm,
+                                                 ln_fwd)
 
     g = torch.Generator(device=device).manual_seed(SEED + 10)
     gamma = torch.randn(e, generator=g, device=device)
@@ -1410,7 +1411,9 @@ def phase_layer_norm(device, peaks, timer, launches_of, reset_launches,
             # 8 FLOP an element in fp32: sum, subtract, square, sum,
             # subtract, two multiplies, add
             n_bytes = 2 * x.numel() * x.element_size() + 2 * e * 4
-            res = dict(case=tag, max_abs_err=err, rel_err=rel,
+            # (warps a row, 16-byte vectors a thread), (0, 0): looping
+            plan = _plan(e, x.element_size())
+            res = dict(case=tag, plan=plan, max_abs_err=err, rel_err=rel,
                        tol=TOL[dtype], rel_tol=REL_TOL[dtype],
                        ms=timer.median_ms(lambda: call("cuda")),
                        plain_ms=timer.median_ms(lambda: call("torch")),

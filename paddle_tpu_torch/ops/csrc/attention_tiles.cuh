@@ -20,7 +20,8 @@
 // is written as 0 and its lse as -inf, and the backward steps give it
 // p = 0 (every one of its scores is masked).
 //
-// Two instantiations of every step:
+// Two instantiations of every step (the flash kernels use the fp32 ones
+// and wgmma kernels of their own for bf16; the block-sparse kernels both):
 //   fp32  the FMA units: 256 threads as 16 x 16, a thread owning a 4 x 4
 //         block of the 64 x 64 score tile (rows 4*ty..4*ty+3, columns
 //         tx + 16*j) and a 4 x (D/16) block of the accumulators.

@@ -4,7 +4,7 @@
 // Replaces the three Pallas TPU kernels of
 // paddle_tpu/ops/pallas/flash_attention.py:
 //   fa_fwd_kernel, fa_fwd_wgmma_kernel  <- _fa_fwd_kernel (:162, call :230)
-//   fa_dq_kernel, fa_dq_mma_kernel      <- _fa_dq_kernel  (:277, call :380)
+//   fa_dq_kernel, fa_dq_wgmma_kernel    <- _fa_dq_kernel  (:277, call :380)
 //   fa_dkv_kernel, fa_dkv_wgmma_kernel  <- _fa_dkv_kernel (:316, call :397)
 // Each computes what its TPU kernel computes; none is carried over block
 // by block. The TPU grids walk the inner tile loop in order and carry
@@ -42,14 +42,11 @@
 // so at full rate the three are tensor-core bound (dQ, dK/dV) or at the
 // balance point (forward); only wgmma reaches the tensor cores' rate.
 // Instantiations:
-//   bf16 forward and dK/dV: wgmma fed by TMA rings (below; building
-//         blocks in hopper_tiles.cuh). A block of 128 rows (q rows, or kv
-//         rows) is two consumer warpgroups of 64 and a producer warp that
+//   bf16  wgmma fed by TMA rings (below; building blocks in
+//         hopper_tiles.cuh). A block of 128 rows (q rows in the forward
+//         and dQ, kv rows in dK/dV) is two consumer warpgroups of 64 and
 //         streams the other side's 64-row tiles through a ring of shared-
 //         memory stages; heaviest causal blocks are launched first.
-//   bf16 dQ: mma.sync.m16n8k16 (fp32 accumulation), 4 warps a block,
-//         each warp owning 16 rows of the tile; tiles staged in shared
-//         memory with plain 16-byte loads, fragments read with ldmatrix.
 //   fp32  the FMA units (67 TFLOP/s peak; the tests' and the parity
 //         step's type): tiles staged as fp32 and a 4 x (D/16) register
 //         micro-tile per thread (256 threads = 16 x 16; a thread owns
@@ -59,7 +56,7 @@
 //         "A" operand is stored k-major and read as float4, the "B"
 //         operand is read as scalars at a stride of 1 or an odd stride
 //         (D + 1).
-// The mma.sync and FMA tile steps (and the helpers above them) live in
+// The FMA tile steps (and the helpers above them) live in
 // attention_tiles.cuh, shared with the block-sparse kernels.
 
 #include "attention_tiles.cuh"
@@ -195,76 +192,29 @@ fa_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   dkv_store<T, D>(dk_acc, dv_acc, dk, dv, (size_t)bh * sk + c0);
 }
 
-// ------------------------------------------ bf16: tensor cores (mma.sync)
-
-template <int D>
-__global__ void __launch_bounds__(kThreadsMma)
-fa_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta,
-                 __nv_bfloat16* __restrict__ dq, int sq, int sk, int causal,
-                 float scale, Dropout drop) {
-  constexpr int kLd = D + 8;
-  const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) >> 2;
-  const int offset = sk - sq;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + kTile * kLd;
-  __nv_bfloat16* ks = dos + kTile * kLd;
-  __nv_bfloat16* vs = ks + kTile * kLd;
-
-  stage_bf16<D>(q + ((size_t)bh * sq + q0) * D, qs, kTile);
-  stage_bf16<D>(dout + ((size_t)bh * sq + q0) * D, dos, kTile);
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse_r[2], dl_r[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    lse_r[h] = lse[(size_t)bh * sq + rows[h]];
-    dl_r[h] = delta[(size_t)bh * sq + rows[h]];
-  }
-  float acc[D / 8][4] = {};
-  const uint32_t key = dropout_key(drop, bh);
-  const int n_kv = sk / kTile;
-  const int last = causal ? min(n_kv - 1, (q0 + kTile - 1 + offset) / kTile)
-                          : n_kv - 1;
-  for (int t = 0; t <= last; ++t) {
-    const int c0 = t * kTile;
-    __syncthreads();
-    stage_bf16<D>(k + ((size_t)bh * sk + c0) * D, ks, kTile);
-    stage_bf16<D>(v + ((size_t)bh * sk + c0) * D, vs, kTile);
-    __syncthreads();
-    dq_tile_mma<D>(acc, qs, dos, ks, vs, rows, lse_r, dl_r, c0, causal,
-                   offset, scale, drop, key);
-  }
-  const float one[2] = {1.f, 1.f};
-  store_rows_bf16<D>(dq + ((size_t)bh * sq + q0 + warp * 16) * D, acc, one);
-}
-
-// ------------------------------- bf16 forward and dK/dV: wgmma fed by TMA
+// ------------------------------------------ bf16: wgmma fed by TMA rings
 //
-// A block owns a 128-row tile (q rows in the forward, kv rows in dK/dV),
-// loaded once by TMA, and is two consumer warpgroups of 64 of its rows
-// each. The other side's 64-row tiles stream through a ring of shared-
-// memory stages, each with a full and an empty mbarrier, kept in flight by
-// TMA loads that one thread issues. Every product is wgmma (operands in
-// shared memory, 128-byte swizzle, or p / ds re-packed from accumulators
-// as register A fragments). One block an SM; under causal the blocks with
-// the most tiles are launched first (each kernel says in what order). A
-// consumer warpgroup skips the work (not the barriers) of a tile wholly
-// above its causal diagonal and masks only tiles that cross it; with an
-// odd count of 64-row tiles the last block's second warpgroup owns rows
-// past the end (TMA reads them as zeros) and only keeps the ring turning.
+// A block owns a 128-row tile (q rows in the forward and dQ, kv rows in
+// dK/dV), loaded once by TMA, and is two consumer warpgroups of 64 of its
+// rows each. The other side's 64-row tiles stream through a ring of
+// shared-memory stages, each with a full and an empty mbarrier, kept in
+// flight by TMA loads that one thread issues. Every product is wgmma
+// (operands in shared memory, 128-byte swizzle, or p / ds re-packed from
+// accumulators as register A fragments). One block an SM; under causal
+// the blocks with the most tiles are launched first (each kernel says in
+// what order). A consumer warpgroup skips the work (not the barriers) of
+// a tile wholly above its causal diagonal and masks only tiles that cross
+// it; with an odd count of 64-row tiles the last block's second
+// warpgroup owns rows past the end (TMA reads them as zeros) and only
+// keeps the ring turning.
 //
 // Registers decide who issues the loads. The forward's consumers fit in
 // 168 registers a thread, so its block adds a producer warpgroup (384
 // threads launch at 168 each: a quarter of the SM holds three warps) and
 // setmaxnreg moves registers from the producer (40) to the consumers
 // (232). dK/dV's consumers need 224 (dK and dV alone take 128 a thread at
-// D = 128); see fa_dkv_wgmma_kernel.
+// D = 128) and dQ's 190 (dQ 64, S and dP 64, the dS fragments 16); see
+// fa_dkv_wgmma_kernel.
 
 constexpr int kWgRows = 64;                  // rows a consumer warpgroup owns
 constexpr int kWgBlock = 2 * kWgRows;        // rows a block owns
@@ -279,6 +229,7 @@ static_assert(kProducerRegs + 2 * kConsumerRegs <= 3 * 168,
 constexpr int kFwdStages = 4;                // K/V ring of the forward
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kDkvStages = 3;                // q/dO/lse/delta ring of dK/dV
+constexpr int kDqStages = 4;                 // K/V ring of dQ
 
 template <int D>
 __host__ __device__ constexpr int tile_bytes(int rows) {
@@ -296,6 +247,12 @@ constexpr size_t dkv_wgmma_smem() {
   return 1024 + 2 * tile_bytes<D>(kWgBlock) +
          kDkvStages * (2 * tile_bytes<D>(kTile) + 2 * kTile * 4) +
          (1 + 2 * kDkvStages) * 8;
+}
+
+template <int D>
+constexpr size_t dq_wgmma_smem() {
+  return 1024 + 2 * tile_bytes<D>(kWgBlock) +
+         2 * kDqStages * tile_bytes<D>(kTile) + (1 + 2 * kDqStages) * 8;
 }
 
 // One kv tile (K at k_base, V at v_base, 64 rows each) against the
@@ -477,6 +434,184 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int h = 0; h < 2; ++h)
           lse[(size_t)bh * sq + rows[h]] =
               l[h] > 0.f ? m[h] + logf(l[h]) : -INFINITY;
+    }
+  }
+}
+
+// One kv tile (K at k_base, V at v_base, 64 rows each) against the
+// warpgroup's 64 q rows rows[h] (Q, dO at q_base, do_base in the block's
+// 128-row tiles; lse_l2 = lse log2(e) and delta of the rows): S = Q K^T
+// and dP = dO V^T, committed apart so that p is computed while dP runs,
+// then dq += ds K, as dq_tile_mma.
+template <int D>
+__device__ __forceinline__ void dq_tile_wgmma(
+    float (&dq)[D / 8][4], uint32_t q_base, uint32_t do_base,
+    uint32_t k_base, uint32_t v_base, const int (&rows)[2],
+    const float (&lse_l2)[2], const float (&dl)[2], int c0, bool mask,
+    int offset, float scale, const Dropout& drop, uint32_t key) {
+  const int tig = threadIdx.x % 4;
+  const float scale_log2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
+  float s[kTile / 8][4] = {}, dp[kTile / 8][4] = {};
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<kTile>(s, kmajor_desc(q_base, kk, kWgBlock),
+                    kmajor_desc(k_base, kk, kTile), kk > 0);
+  wg_commit();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<kTile>(dp, kmajor_desc(do_base, kk, kWgBlock),
+                    kmajor_desc(v_base, kk, kTile), kk > 0);
+  wg_commit();
+  // p while dP is still in the tensor cores
+  wg_wait<1>();
+  wg_fence_regs(s);
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, col = c0 + j * 8 + 2 * tig + (e & 1);
+      const bool masked = mask && rows[h] + offset < col;
+      s[j][e] =
+          masked ? 0.f : exp2f(fmaf(s[j][e], scale_log2, -lse_l2[h]));
+    }
+  wg_wait<0>();
+  wg_fence_regs(dp);
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, col = c0 + j * 8 + 2 * tig + (e & 1);
+      float dpv = dp[j][e];
+      if (drop.on) {
+        const uint32_t bits = dropout_bits(key, rows[h], col);
+        dpv = bits >= drop.threshold ? dpv / drop.keep_div : 0.f;
+      }
+      s[j][e] = s[j][e] * (dpv - dl[h]) * scale;  // ds
+    }
+  uint32_t da[kTile / 16][4];
+  to_a_frags<kTile / 8>(da, s);  // rounded to bf16, as the reference
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk)
+    wgmma_rs_t<D>(dq, da[kk], mnmajor_desc(k_base, kk, kTile));
+  wg_commit();
+  wg_wait<0>();
+  wg_fence_regs(dq);
+}
+
+// dQ runs as dK/dV does, without a producer warpgroup (its consumers take
+// 190 registers a thread at D = 128): 256 threads, and one of them keeps the
+// K/V ring's TMA loads in flight, refilling a stage with the tile
+// kDqStages further on once both warpgroups have released it, one tile
+// after its own release. The Q and dO tiles are loaded once.
+template <int D>
+__global__ void __launch_bounds__(kConsumerThreads, 1)
+fa_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const __grid_constant__ CUtensorMap tm_dq,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, int sq, int sk,
+                   int causal, float scale, Dropout drop) {
+  constexpr int kQBytes = tile_bytes<D>(kWgBlock);
+  constexpr int kKvBytes = tile_bytes<D>(kTile);
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* qs = align_1024(wg_smem);
+  unsigned char* dos = qs + kQBytes;
+  unsigned char* ks = dos + kQBytes;              // [kDqStages] K tiles
+  unsigned char* vs = ks + kDqStages * kKvBytes;  // [kDqStages] V tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kDqStages * kKvBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kDqStages;
+
+  // as the forward: a batch-head's q blocks together, the last (the most
+  // kv tiles under causal) first
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWgBlock;
+  const int offset = sk - sq;
+  const int q_last = min(q0 + kWgBlock, sq) - 1;
+  // kv tiles wholly above the block's diagonal are never loaded
+  const int n_t = causal ? min(sk / kTile, (q_last + offset) / kTile + 1)
+                         : sk / kTile;
+  // kv tile t into its stage: K and V
+  const auto load = [&](int t) {
+    const int s = t % kDqStages;
+    mbar_expect_tx(&full[s], 2 * kKvBytes);
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb) {
+      tma_load_3d(ks + s * kKvBytes + cb * kTile * 128, &tm_k, &full[s],
+                  cb * 64, t * kTile, bh);
+      tma_load_3d(vs + s * kKvBytes + cb * kTile * 128, &tm_v, &full[s],
+                  cb * 64, t * kTile, bh);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_full, 2 * kQBytes);
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb) {
+      tma_load_3d(qs + cb * kWgBlock * 128, &tm_q, q_full, cb * 64, q0, bh);
+      tma_load_3d(dos + cb * kWgBlock * 128, &tm_do, q_full, cb * 64, q0,
+                  bh);
+    }
+    for (int t = 0; t < min(n_t, kDqStages); ++t) load(t);
+  }
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int g = (threadIdx.x % 32) / 4;
+  const int row0 = q0 + wg * kWgRows;
+  const bool live = row0 < sq;
+  const int rows[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
+  const uint32_t q_base = smem_u32(qs) + wg * kWgRows * 128;
+  const uint32_t do_base = smem_u32(dos) + wg * kWgRows * 128;
+  const uint32_t key = dropout_key(drop, bh);
+  float lse_l2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  if (live)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lse_l2[h] = lse[(size_t)bh * sq + rows[h]] * kLog2e;
+      dl[h] = delta[(size_t)bh * sq + rows[h]];
+    }
+  float acc[D / 8][4] = {};
+  if (live) mbar_wait(q_full, 0);
+  for (int t = 0; t < n_t; ++t) {
+    const int s = t % kDqStages, c0 = t * kTile;
+    if (threadIdx.x == 0 && t > 0 && t - 1 + kDqStages < n_t) {
+      mbar_wait(&empty[(t - 1) % kDqStages], ((t - 1) / kDqStages) & 1);
+      load(t - 1 + kDqStages);
+    }
+    mbar_wait(&full[s], (t / kDqStages) & 1);
+    if (live && !(causal && c0 > row0 + kWgRows - 1 + offset))
+      dq_tile_wgmma<D>(acc, q_base, do_base, smem_u32(ks + s * kKvBytes),
+                       smem_u32(vs + s * kKvBytes), rows, lse_l2, dl, c0,
+                       causal && c0 + kTile - 1 > row0 + offset, offset,
+                       scale, drop, key);
+    mbar_arrive(&empty[s]);
+  }
+  if (live) {
+    // dQ through the warpgroup's rows of the Q tile, which it no longer
+    // reads, and one TMA store: whole 128-byte lines to HBM
+    const float one[2] = {1.f, 1.f};
+    stage_acc_bf16<D>(qs, kWgBlock, wg * kWgRows, acc, one);
+    fence_async_shared();
+    named_barrier(1 + wg, 128);
+    if (threadIdx.x % 128 == 0) {
+#pragma unroll
+      for (int cb = 0; cb < D / 64; ++cb)
+        tma_store_3d(&tm_dq, qs + (cb * kWgBlock + wg * kWgRows) * 128,
+                     cb * 64, row0, bh);
+      tma_store_drain();
     }
   }
 }
@@ -719,25 +854,6 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 template <int D>
-cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
-                          const void* dout, const void* lse,
-                          const void* delta, void* dq, int bh, int sq,
-                          int sk, int causal, float scale, Dropout drop,
-                          cudaStream_t st) {
-  auto kernel = fa_dq_mma_kernel<D>;
-  cudaError_t err = set_smem(kernel, dq_smem_mma<D>());
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(sq / kTile, bh), kThreadsMma, dq_smem_mma<D>(), st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), sq, sk, causal, scale, drop);
-  return cudaGetLastError();
-}
-
-template <int D>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
                              void* out, void* lse, int bh, int sq, int sk,
                              int causal, float scale, Dropout drop,
@@ -755,6 +871,29 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
            fwd_wgmma_smem<D>(), st>>>(
       tq, tk, tv, tout, static_cast<float*>(lse), sq, sk, causal, scale,
       drop);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, int bh, int sq,
+                            int sk, int causal, float scale, Dropout drop,
+                            cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  cudaError_t err = bf16_map(&tq, q, bh, sq, D, kWgBlock);
+  if (err == cudaSuccess) err = bf16_map(&tk, k, bh, sk, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tv, v, bh, sk, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tdo, dout, bh, sq, D, kWgBlock);
+  if (err == cudaSuccess) err = bf16_map(&tdq, dq, bh, sq, D, kWgRows);
+  if (err != cudaSuccess) return err;
+  auto kernel = fa_dq_wgmma_kernel<D>;
+  err = set_smem(kernel, dq_wgmma_smem<D>());
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((sq + kWgBlock - 1) / kWgBlock, bh), kConsumerThreads,
+           dq_wgmma_smem<D>(), st>>>(
+      tq, tk, tv, tdo, tdq, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), sq, sk, causal, scale, drop);
   return cudaGetLastError();
 }
 
@@ -841,7 +980,7 @@ int fa_dq_launch(const void* q, const void* k, const void* v,
   const Dropout drop =
       make_dropout(seed, threshold, keep_div, keep_inv, dropout_on);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FA_DISPATCH(launch_dq, launch_dq_mma, q, k, v, dout, lse, delta, dq, bh,
+  FA_DISPATCH(launch_dq, launch_dq_wgmma, q, k, v, dout, lse, delta, dq, bh,
               sq, sk, causal, scale, drop, st);
 }
 

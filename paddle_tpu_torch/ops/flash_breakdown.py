@@ -1,23 +1,26 @@
-"""Where the bf16 flash forward's time goes, by knock-out on the card.
+"""Where the bf16 flash forward's and dQ's time goes, by knock-out on the
+card.
 
     python3 -m paddle_tpu_torch.ops.flash_breakdown
 
 Builds copies of ``csrc/flash_attention.cu`` with one part of the forward
-kernel (``fa_fwd_wgmma_kernel``) taken out, and times each against the
-kernel as it is at the training path's shape (BH=128, S=1024, D=128),
-causal and not, the L2 cache flushed before each of 25 launches, in two
-rounds of opposite order. A copy's output is wrong by design: only its
-time counts. The parts:
+kernel (``fa_fwd_wgmma_kernel``) or of the dQ kernel
+(``fa_dq_wgmma_kernel``) taken out, and times each against the kernel as
+it is at the training path's shape (BH=128, S=1024, D=128), causal and
+not, the L2 cache flushed before each of 25 launches, in two rounds of
+opposite order. A copy's output is wrong by design: only its time
+counts. The parts, for each kernel:
 
-- ``no_kv_loads``: the producer stops loading K and V once the ring is
-  full; the consumers reuse the tiles already there;
+- ``no_kv_loads``: K and V are loaded no more once the ring is full; the
+  consumers reuse the tiles already there;
 - ``no_tile_math``: the consumers wait for and release every tile but do
-  neither product nor the softmax;
-- ``no_store``: the epilogue writes neither out nor lse;
+  none of its products (nor the softmax, or ds);
+- ``no_store``: the epilogue writes nothing (neither out nor lse, or dQ);
 - ``skeleton``: ``no_kv_loads`` and ``no_tile_math`` together.
 
-Prints one JSON object per (variant, causal, round), then the card's name
-and power limit. Needs a CUDA card and nvcc, like the kernels.
+Prints one JSON object per (kernel, variant, causal, round), then the
+card's name and power limit. Needs a CUDA card and nvcc, like the
+kernels.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ import torch
 from . import _build
 from . import flash_attention as fa
 
-CUTS = {
+FWD_CUTS = {
     "no_kv_loads": [(
         "        mbar_expect_tx(&full[s], 2 * kKvBytes);",
         "        if (t >= kFwdStages) {\n"
@@ -47,19 +50,32 @@ CUTS = {
     "no_store": [("    if (live) {\n      // out through",
                   "    if (live && sq < 0) {\n      // out through")],
 }
-CUTS["skeleton"] = CUTS["no_kv_loads"] + CUTS["no_tile_math"]
+FWD_CUTS["skeleton"] = FWD_CUTS["no_kv_loads"] + FWD_CUTS["no_tile_math"]
+DQ_CUTS = {
+    "no_kv_loads": [("      load(t - 1 + kDqStages);",
+                     "      mbar_arrive(&full[(t - 1) % kDqStages]);")],
+    "no_tile_math": [("      dq_tile_wgmma<D>(acc, q_base,",
+                      "      if (sq < 0) dq_tile_wgmma<D>(acc, q_base,")],
+    "no_store": [("  if (live) {\n    // dQ through",
+                  "  if (live && sq < 0) {\n    // dQ through")],
+}
+DQ_CUTS["skeleton"] = DQ_CUTS["no_kv_loads"] + DQ_CUTS["no_tile_math"]
+# each copy's cuts, by "<kernel>_<part>"
+CUTS = {"as_is": [],
+        **{f"fwd_{name}": cuts for name, cuts in FWD_CUTS.items()},
+        **{f"dq_{name}": cuts for name, cuts in DQ_CUTS.items()}}
 
 
 def build(out: Path) -> dict:
     """The kernel as it is and each cut copy, built in parallel."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
     procs = {}
-    for name, cuts in [("as_is", [])] + list(CUTS.items()):
+    for name, cuts in CUTS.items():
         text = src
         for old, new in cuts:
             if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the line to cut is not unique: "
-                                   f"{old!r}")
+                raise RuntimeError(f"{name}: the line to cut is not "
+                                   f"unique: {old!r}")
             text = text.replace(old, new)
         cu = out / f"{name}.cu"
         cu.write_text(text)
@@ -101,22 +117,29 @@ def main() -> int:
     dev = torch.device("cuda")
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
-    q, k, v = (torch.randn(128, 1024, 128, generator=g, device=dev)
-               .bfloat16() for _ in range(3))
+    q, k, v, do = (torch.randn(128, 1024, 128, generator=g, device=dev)
+                   .bfloat16() for _ in range(4))
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp))
-        names = list(libs)
-        for causal in (True, False):
-            args = (causal, 128 ** -0.5, 0.0, 0)
-            for rnd, order in enumerate((names, names[::-1])):
-                for name in order:
-                    _build._LIBS["flash_attention"] = ctypes.CDLL(
-                        str(libs[name]))
-                    ms = median_ms(lambda: fa.flash_fwd(q, k, v, *args),
-                                   flush)
-                    print(json.dumps({"variant": name, "causal": causal,
-                                      "round": rnd, "fwd_ms": ms}),
-                          flush=True)
+        for kernel in ("fwd", "dq"):
+            # the kernel as it is, then its own cuts
+            names = ["as_is"] + [name for name in libs
+                                 if name.startswith(kernel + "_")]
+            for causal in (True, False):
+                args = (causal, 128 ** -0.5, 0.0, 0)
+                out, lse = fa.flash_fwd(q, k, v, *args, impl="torch")
+                delta = (do.float() * out.float()).sum(-1)
+                call = {"fwd": lambda: fa.flash_fwd(q, k, v, *args),
+                        "dq": lambda: fa.flash_dq(q, k, v, do, lse, delta,
+                                                  *args)}[kernel]
+                for rnd, order in enumerate((names, names[::-1])):
+                    for name in order:
+                        _build._LIBS["flash_attention"] = ctypes.CDLL(
+                            str(libs[name]))
+                        print(json.dumps({
+                            "kernel": kernel, "variant": name,
+                            "causal": causal, "round": rnd,
+                            "ms": median_ms(call, flush)}), flush=True)
         _build._LIBS.pop("flash_attention", None)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -2,10 +2,13 @@
 plain PyTorch version, with the reference's closed-form backward.
 
 The counterpart of ``paddle_tpu.ops.pallas.layer_norm``. The forward over
-``[N, F]`` rows is one kernel (``csrc/layer_norm.cu``): fp32 mean, then
+``[N, F]`` rows is one launch (``csrc/layer_norm.cu``): fp32 mean, then
 the variance as the mean of ``(x - mean)^2``, ``rsqrt(var + eps)``, the
-affine in fp32, the output in x's dtype. The backward is the reference's
-closed form (``_ln_bwd``), which it leaves to XLA: plain torch here.
+affine in fp32, the output in x's dtype. :func:`_plan` picks, from the
+row length alone, the kernel that holds each row in registers and how
+many warps share a row, or the looping kernel for rows the register kernel
+does not cover. The backward is the reference's closed form (``_ln_bwd``),
+which it leaves to XLA: plain torch here.
 
 :func:`ln_fwd` picks by the device of its tensor: on a CUDA tensor it
 launches the kernel or raises, on a CPU tensor it runs the plain version
@@ -24,6 +27,30 @@ __all__ = ["fused_layer_norm", "ln_fwd", "ln_fwd_torch", "KERNEL_NAME"]
 KERNEL_NAME = "layer_norm_fwd"
 _SOURCE = "layer_norm"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_BLOCK_WARPS = 8  # warps a block of the kernels
+_MAX_CHUNKS = 16  # 16-byte vectors a thread of the register kernel holds
+
+
+def _plan(f: int, itemsize: int):
+    """``(warps, chunks)`` for rows of ``f`` elements of ``itemsize``
+    bytes: the register kernel with ``warps`` warps a row, each thread
+    holding ``chunks`` 16-byte vectors of it (a power of two); ``(0, 0)``
+    for the looping kernel (F not a multiple of the vector width, or a row
+    past 16 vectors a thread at 8 warps). As many warps a row as the row
+    has vectors for, up to a block's 8, so each thread holds as few as it
+    can: on the card that was fastest at 16 and at 8192 rows alike
+    (PERF.md), so the row count plays no part."""
+    vec = 16 // itemsize
+    if f % vec:
+        return 0, 0
+    nv = f // vec
+    warps = 1
+    while warps < _BLOCK_WARPS and 64 * warps <= nv:
+        warps *= 2
+    need = -(-nv // (32 * warps))
+    if need > _MAX_CHUNKS:
+        return 0, 0
+    return warps, 1 << (need - 1).bit_length()
 
 
 def ln_fwd_torch(x, gamma, beta, eps: float):
@@ -41,7 +68,8 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     if lib.ln_fwd_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ln_fwd_launch.argtypes = [p] * 4 + [i, i, ctypes.c_float, i, p]
+        lib.ln_fwd_launch.argtypes = [p] * 4 + [i, i, ctypes.c_float, i,
+                                                i, i, p]
         lib.ln_fwd_launch.restype = ctypes.c_int
         lib.ln_error_string.argtypes = [i]
         lib.ln_error_string.restype = ctypes.c_char_p
@@ -78,6 +106,7 @@ def ln_fwd(x, gamma, beta, eps: float, impl: str = "auto"):
         err = lib.ln_fwd_launch(
             x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), n, f,
             float(eps), _DTYPE_CODES[x.dtype],
+            *_plan(f, x.element_size()),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME} kernel launch failed: "

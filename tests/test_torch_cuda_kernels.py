@@ -302,6 +302,8 @@ FLASH_CASES = [
     (2, 256, 128, 64, False, 0.0),    # sq > sk, non-causal
     (2, 256, 256, 64, True, 0.3),     # causal dropout
     (1, 192, 320, 128, False, 0.5),   # 64-multiples the gate would refuse
+    (1, 192, 320, 128, True, 0.0),    # causal, odd count of 64-row tiles
+    (1, 2048, 2048, 128, True, 0.0),  # the K/V ring wraps many times
 ]
 
 
@@ -400,8 +402,10 @@ MUTATIONS = {
             "if (live && !(causal && c0 > row0 + kWgRows - 1 + offset))",
             "if (live && (t > 0 || n_t == 1) "
             "&& !(causal && c0 > row0 + kWgRows - 1 + offset))"),
-    "dq": ("fa_dq_mma_kernel", "for (int t = 0; t <= last; ++t) {",
-           "for (int t = (last > 0); t <= last; ++t) {"),
+    "dq": ("fa_dq_wgmma_kernel",
+           "if (live && !(causal && c0 > row0 + kWgRows - 1 + offset))",
+           "if (live && (t > 0 || n_t == 1) "
+           "&& !(causal && c0 > row0 + kWgRows - 1 + offset))"),
     "dkv": ("fa_dkv_wgmma_kernel",
             "if (live && !(causal && r0 + kTile - 1 + offset < col0))",
             "if (live && (i < n_t - 1 || n_t == 1) "
@@ -689,7 +693,11 @@ def test_block_sparse_limit_rejects_a_kernel_that_skips_a_block(
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,f", [(300, 2048), (67, 2101), (16, 2048),
-                                 (5, 64)])
+                                 (5, 64)] + [
+    # every branch of the launch plan: one warp to eight a row, 1 to 16
+    # vectors a thread, and the looping kernel (F = 2101)
+    (n, f) for n in (1, 16, 8192) for f in (64, 2048, 2101, 8192)
+    if (n, f) != (16, 2048)])
 def test_layer_norm_kernel_matches_plain(card, n, f, dtype):
     from paddle_tpu_torch.ops.layer_norm import KERNEL_NAME, ln_fwd
 
@@ -723,6 +731,56 @@ def test_fused_layer_norm_autograd_runs_the_kernel(card, dtype, monkeypatch):
                                      else {})
     for a, b in zip(res["cuda"], res["torch"]):
         _close(a, b, dtype)
+
+
+# the first 32 16-byte vectors of each row left out of the register
+# kernel's mean and variance (256 of 2048 bf16 elements)
+LN_MUTATION = [
+    ("for (int c = 0; c < C; ++c) sum += vec_sum<T>(raw[c]);",
+     "for (int c = 0; c < C; ++c)\n"
+     "    if (c * kRowThreads + tr >= 32) sum += vec_sum<T>(raw[c]);"),
+    ("if (c * kRowThreads + tr < nv) sq += vec_sq<T>(raw[c], mean);",
+     "if (c * kRowThreads + tr >= 32 && c * kRowThreads + tr < nv)\n"
+     "      sq += vec_sq<T>(raw[c], mean);"),
+]
+
+
+def test_layer_norm_limit_rejects_a_kernel_that_skips_a_chunk(
+        card, tmp_path, monkeypatch):
+    """The bf16 limit tells a right kernel from a broken one: the register
+    kernel is rebuilt with one chunk of each row (its first 32 16-byte
+    vectors, an eighth of a 2048-wide bf16 row) left out of the
+    statistics, and at the train path's activations ([8192, 2048] bf16)
+    its output must miss REL_TOL, while the right kernel meets it. Prints
+    both readings."""
+    import ctypes
+    import subprocess
+
+    from paddle_tpu_torch.ops.layer_norm import _plan, ln_fwd
+
+    assert _plan(2048, 2) != (0, 0)  # the register kernel runs
+    g = torch.Generator(device=card).manual_seed(8)
+    x = (torch.randn(8192, 2048, generator=g, device=card) * 2
+         + 0.5).bfloat16()
+    gamma = torch.randn(2048, generator=g, device=card)
+    beta = torch.randn(2048, generator=g, device=card)
+    want = ln_fwd(x, gamma, beta, 1e-5, impl="torch")
+    right = rel_err(ln_fwd(x, gamma, beta, 1e-5), want)
+    text = (_build.CSRC / "layer_norm.cu").read_text()
+    for old, new in LN_MUTATION:
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    src, lib = tmp_path / "ln.cu", tmp_path / "libln.so"
+    src.write_text(text)
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    assert proc.returncode == 0, proc.stdout.decode()[-2000:]
+    monkeypatch.setitem(_build._LIBS, "layer_norm", ctypes.CDLL(str(lib)))
+    broken = rel_err(ln_fwd(x, gamma, beta, 1e-5), want)
+    print(f"layer_norm bf16 rel err, right kernel: {right}; kernel missing "
+          f"a chunk: {broken}; limit {REL_TOL[torch.bfloat16]}")
+    assert right <= REL_TOL[torch.bfloat16] < broken
 
 
 def test_layer_norm_kernel_rejects_what_it_does_not_take(card):

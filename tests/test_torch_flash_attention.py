@@ -119,6 +119,11 @@ TWIN_CASES = [
     (2, 320, 128, 128, False, 0.0),   # sq > sk, odd count of 64-row tiles
     (1, 128, 128, 64, True, 0.9),
     (3, 64, 64, 128, False, 0.0),
+    # the bf16 dQ kernel's geometry: 128-row blocks of two 64-row
+    # warpgroups over a K/V ring
+    (1, 192, 320, 128, True, 0.0),    # causal, odd count of 64-row tiles
+    (1, 512, 512, 64, True, 0.0),     # causal S = 512 at D = 64
+    (2, 256, 384, 128, True, 0.2),    # causal dropout, offset 128
 ]
 
 

@@ -16,7 +16,7 @@ import torch
 
 from paddle_tpu.ops.pallas import fused_layer_norm as jax_fused_layer_norm
 from paddle_tpu_torch.ops import _build
-from paddle_tpu_torch.ops.layer_norm import fused_layer_norm, ln_fwd
+from paddle_tpu_torch.ops.layer_norm import _plan, fused_layer_norm, ln_fwd
 
 pytestmark = pytest.mark.torch_port
 
@@ -35,7 +35,11 @@ def _bf16_ulp(x: np.ndarray) -> float:
     return float(2.0 ** (np.floor(np.log2(np.abs(x).max())) - 7))
 
 
-@pytest.mark.parametrize("shape", [(2, 48, 256), (3, 5, 2101), (1, 8, 64)])
+@pytest.mark.parametrize("shape", [
+    (2, 48, 256), (3, 5, 2101), (1, 8, 64),
+    # rows of the card's register-kernel templates: F = 1024, 2048 and
+    # 4096, and a single row (N = 1)
+    (3, 1024), (2, 8, 2048), (5, 4096), (1, 2048)])
 def test_forward_and_grads_match_pallas_interpret(shape):
     """fp32 forward and the gradients of sum(out**3) in x, gamma, beta
     (as tests/test_pallas.py differentiates the reference), within 2e-5
@@ -99,3 +103,41 @@ def test_kernel_route_raises_without_a_card():
     x = torch.zeros(4, 64)
     with pytest.raises(ValueError, match="CUDA"):
         ln_fwd(x, torch.ones(64), torch.zeros(64), 1e-5, impl="cuda")
+
+
+@pytest.mark.parametrize("f,itemsize,plan", [
+    (2048, 2, (8, 1)),    # the GPT-3 1.3B width, bf16
+    (2048, 4, (8, 2)),    # fp32
+    (1024, 2, (4, 1)),    # 128 vectors a row: four warps
+    (1536, 2, (4, 2)),    # 192 vectors a row, rounded up to 256
+    (4096, 2, (8, 2)),
+    (8192, 4, (8, 8)),
+    (32768, 2, (8, 16)),  # the longest row the registers hold
+    (64, 2, (1, 1)),      # a row shorter than a warp's vectors
+    (2101, 2, (0, 0)),    # not a multiple of the vector width
+    (65536, 4, (0, 0)),   # past 16 vectors a thread at 8 warps
+])
+def test_launch_plan_by_row_length(f, itemsize, plan):
+    """The launch plan the wrapper hands the card's kernels: (warps a
+    row, 16-byte vectors a thread) of the register kernel, or (0, 0) for
+    the looping kernel."""
+    assert _plan(f, itemsize) == plan
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_launch_plan_covers_every_row(itemsize):
+    """Every register-kernel plan covers the row with 16-byte vectors
+    (32 x warps x chunks of them), holds at most 16 a thread, a power of
+    two, and gives a row as many warps as it has vectors for, up to 8."""
+    vec = 16 // itemsize
+    for f in range(vec, 2 ** 16 + 1, 3 * vec):
+        warps, chunks = _plan(f, itemsize)
+        nv = f // vec
+        if warps == 0:
+            assert nv > 32 * 8 * 16
+            continue
+        assert warps in (1, 2, 4, 8) and chunks in (1, 2, 4, 8, 16)
+        assert 32 * warps * chunks >= nv
+        assert 32 * (warps - 1) < nv  # the last warp has a vector
+        assert warps == 8 or 64 * warps > nv  # more would leave it none
+        assert 32 * warps * (chunks // 2) < nv or chunks == 1
