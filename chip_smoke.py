@@ -16,7 +16,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    tiles at unaligned offsets and inactive segments, in fp32 and bf16:
    max abs and relative norm errors against their limits; median times
    over >= 20 launches with the L2 cache flushed before each, the bytes
-   and operations the inputs need, and the resulting bound.
+   and operations the inputs need, and the resulting bound. Then
+   ``kernel_geometry``: the same kind of mix on smaller pools at head dim
+   16, 256 and 512 and at q_tile 16, fp32 and bf16 (errors, ms, bound),
+   and at head dim 48 with unpadded pools, which the launcher pads for
+   the call: that call's ms against the kernel's on pools padded once.
    ``decode`` — the per-row (decode) paged attention kernel behind
    ``ragged_paged_attention``, its path being that entry point: (b) right
    after ``kernel``, a decode batch that makes the card work (128 rows at
@@ -43,6 +47,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    device time by kernel, the attention kernel's time from the profiler.
 6. ``prefix`` — the prefix cache on: 8 requests sharing a 640-token
    prompt; the 7 that follow the first must skip its prefill.
+   ``tiny`` — the ``gpt_tiny`` preset (head dim 16) in fp32 behind
+   ``Engine`` at q_tile 16, seeded weights and prompts, through the
+   kernel and through the plain attention: the kernel must launch once a
+   layer a step and the streams must be equal token for token.
    ``preempt`` — the serve traffic on the full-width model at 4 layers in
    fp32, with the serve pool and with one too small for it: preemption
    must happen in the small pool only, both pools must drain, and the
@@ -329,6 +337,62 @@ def phase_kernel(device, peaks, timer):
         results[res["dtype"]] = res
         del args
     return results
+
+
+# Smaller pools at the head dims and q_tile the serving mix does not run:
+# (name, heads, head_dim, q_tile, pool blocks)
+GEOMETRY_CASES = (("d16", 16, 16, 8, 512), ("d256", 8, 256, 8, 512),
+                  ("d512", 4, 512, 8, 256), ("q_tile16", 16, 128, 16, 512))
+
+
+def phase_kernel_geometry(device, peaks, timer):
+    """Row 1 at the head dims and q_tile of GEOMETRY_CASES, fp32 and bf16,
+    against the plain version, timed beside its bound; then at head dim 48
+    on unpadded pools, which the launcher pads to 64 for the call, against
+    the same call on pools padded once (the copy's cost)."""
+    from paddle_tpu_torch.ops.ragged_paged_attention import \
+        ragged_paged_attention_chunked
+
+    rng = np.random.default_rng(SEED + 21)
+    for name, heads, head_dim, tq, num_blocks in GEOMETRY_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args, n_live, n_segs = rpa_inputs(
+                rng, device, dtype, n_heads=heads, head_dim=head_dim, tq=tq,
+                num_blocks=num_blocks)
+            got = ragged_paged_attention_chunked(*args, impl="cuda")
+            want = ragged_paged_attention_chunked(*args, impl="torch")
+            torch.cuda.synchronize()
+            err, rel = agreement(f"row 1 at {name} ({dtype})", got, want)
+            if not bool((got[n_live:] == 0).all().item()):
+                raise AssertionError(f"row 1 at {name}: inactive rows are "
+                                     "not zero")
+            ms = timer.median_ms(
+                lambda: ragged_paged_attention_chunked(*args, impl="cuda"))
+            bound = rpa_bound(args, peaks)
+            res = dict(case=name, dtype=str(dtype).replace("torch.", ""),
+                       heads=heads, head_dim=head_dim, q_tile=tq,
+                       pool_blocks=num_blocks, segments=n_segs, rows=n_live,
+                       max_abs_err=err, rel_err=rel, ms=ms, **bound,
+                       x_bound=ms / bound["bound_ms"])
+            emit("kernel_geometry", **res)
+            del args, got, want
+    args, _, _ = rpa_inputs(rng, device, torch.bfloat16, head_dim=48,
+                            num_blocks=1024)
+    padded = [torch.nn.functional.pad(t, (0, 16)) for t in args[:3]]
+    call = lambda: ragged_paged_attention_chunked(
+        *args, scale=48 ** -0.5, impl="cuda")
+    once = lambda: ragged_paged_attention_chunked(
+        *padded, *args[3:], scale=48 ** -0.5, impl="cuda")
+    err, rel = agreement("row 1 at head dim 48", call(),
+                         ragged_paged_attention_chunked(*args, impl="torch"))
+    if not torch.equal(call(), once()[..., :48]):
+        raise AssertionError("the padded call differs from the kernel on "
+                             "pools padded once")
+    ms, ms_once = timer.median_ms(call), timer.median_ms(once)
+    emit("kernel_geometry", case="d48_unpadded_pools", dtype="bfloat16",
+         head_dim=48, run_at=64, pool_gb=2 * args[1].numel() * 2 / 1e9,
+         max_abs_err=err, rel_err=rel, ms=ms, ms_pools_padded_once=ms_once,
+         pad_copy_ms=ms - ms_once)
 
 
 # ------------------------------------------- per-row (decode) attention
@@ -791,6 +855,55 @@ def phase_prefix(device, cfg, model, launches_of, reset_launches):
          follower_ttft_p50_ms=float(np.median(ttft)), ok=ok)
     if not ok:
         raise AssertionError("prefix-cache serve failed its checks")
+
+
+def phase_tiny(device, launches_of, reset_launches):
+    """The ``gpt_tiny`` preset (E 64, H 4, D 16, V 256, 2 layers), seeded
+    weights (std 0.25, so that greedy picks are far from ties) in fp32,
+    served at q_tile 16 through the kernel and through the plain
+    attention: 8 seeded prompts of 8..96 tokens, 24 new tokens each, even
+    requests greedy, odd ones temperature 0.8 / top-k 20."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+    from paddle_tpu_torch.text.models import gpt_tiny
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = gpt_tiny()
+    model = build_model(cfg, random_weights(cfg, cfg.num_layers, device,
+                                            std=0.25), device, torch.float32)
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(8, 97, 8)]
+    params = [SamplingParams(max_new_tokens=24) if i % 2 == 0 else
+              SamplingParams(max_new_tokens=24, temperature=0.8, top_k=20,
+                             seed=i) for i in range(8)]
+    streams, runs = {}, {}
+    for attention in ("cuda", "torch"):
+        engine = Engine(model, EngineConfig(
+            max_slots=8, token_budget=64, block_size=16, num_blocks=128,
+            max_blocks_per_seq=8, q_tile=16, attention=attention),
+            device=device)
+        reset_launches()
+        reqs, n_steps = run_waves(engine, prompts, params)
+        launches = launches_of()
+        streams[attention] = [list(r.generated) for r in reqs]
+        runs[attention] = dict(steps=n_steps, launches=launches,
+                               by_length=all(r.finish_reason == "length"
+                                             for r in reqs),
+                               blocks_in_use=engine.kv.blocks_in_use)
+    kernel_launches = runs["cuda"]["launches"].get(
+        "ragged_paged_attention_chunked", 0)
+    same = streams["cuda"] == streams["torch"]
+    ok = (same and kernel_launches == cfg.num_layers * runs["cuda"]["steps"]
+          and not runs["torch"]["launches"]
+          and all(r["by_length"] and r["blocks_in_use"] == 0
+                  for r in runs.values()))
+    emit("tiny", config="gpt_tiny", head_dim=cfg.head_dim, q_tile=16,
+         dtype="float32", requests=len(prompts),
+         prompt_tokens=sum(map(len, prompts)), streams_equal=same,
+         kernel_launches=kernel_launches, **runs, ok=ok)
+    if not ok:
+        raise AssertionError("gpt_tiny at q_tile 16: streams differ from "
+                             "the plain route, or launches are off")
 
 
 def run_waves(engine, prompts, params):
@@ -1680,6 +1793,7 @@ def main() -> int:
 
     timer = Timer(device)
     kernel = phase_kernel(device, peaks, timer)
+    phase_kernel_geometry(device, peaks, timer)
     decode, decode_launches = phase_decode_batch(
         device, peaks, timer, _build.launches, _build.reset_launches)
     cfg = gpt3_1p3b()
@@ -1697,6 +1811,7 @@ def main() -> int:
     phase_prefix(device, cfg, model, _build.launches, _build.reset_launches)
     del model
     torch.cuda.empty_cache()
+    phase_tiny(device, _build.launches, _build.reset_launches)
     phase_preempt(device, cfg)
 
     flash = phase_flash(device, peaks, timer)

@@ -66,15 +66,18 @@ CUTS = {"as_is": [],
         **{f"dq_{name}": cuts for name, cuts in DQ_CUTS.items()}}
 
 
-def build(out: Path) -> dict:
-    """The kernel as it is and each cut copy, built in parallel."""
-    src = (_build.CSRC / "flash_attention.cu").read_text()
+def build(out: Path, source: str = "flash_attention",
+          variants: dict = CUTS) -> dict:
+    """Copies of ``csrc/<source>.cu`` into ``out``, each with its (line,
+    replacement) edits, built in parallel: name -> (library, the ptxas
+    lines of its log)."""
+    src = (_build.CSRC / f"{source}.cu").read_text()
     procs = {}
-    for name, cuts in CUTS.items():
+    for name, edits in variants.items():
         text = src
-        for old, new in cuts:
+        for old, new in edits:
             if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the line to cut is not "
+                raise RuntimeError(f"{name}: the line to change is not "
                                    f"unique: {old!r}")
             text = text.replace(old, new)
         cu = out / f"{name}.cu"
@@ -88,8 +91,15 @@ def build(out: Path) -> dict:
         log = proc.communicate()[0].decode()
         if proc.returncode:
             raise RuntimeError(f"{name} did not build:\n{log[-3000:]}")
-        libs[name] = lib
+        libs[name] = (lib, [line for line in log.splitlines()
+                            if "ptxas" in line or "spill" in line])
     return libs
+
+
+def load_variant(source: str, lib: Path) -> None:
+    """Make the kernel entry points of ``source`` launch from ``lib`` (a
+    library :func:`build` made) until ``_build._LIBS.pop(source)``."""
+    _build._LIBS[source] = ctypes.CDLL(str(lib))
 
 
 def median_ms(fn, flush, reps: int = 25) -> float:
@@ -134,8 +144,7 @@ def main() -> int:
                                                   *args)}[kernel]
                 for rnd, order in enumerate((names, names[::-1])):
                     for name in order:
-                        _build._LIBS["flash_attention"] = ctypes.CDLL(
-                            str(libs[name]))
+                        load_variant("flash_attention", libs[name][0])
                         print(json.dumps({
                             "kernel": kernel, "variant": name,
                             "causal": causal, "round": rnd,

@@ -38,7 +38,8 @@ import torch
 
 from .. import observability as _obs
 from ..core.device import resolve_device, same_device
-from ..ops.ragged_paged_attention import check_kernel_geometry
+from ..ops.ragged_paged_attention import (check_kernel_geometry,
+                                          kernel_head_dim)
 from .kv_cache import PagedKVCache
 from .model import GPTServingModel
 from .prefix_cache import RadixPrefixCache
@@ -140,12 +141,16 @@ class Engine:
         self.model = model
         self.config = config
         self._tq = max(1, min(config.q_tile, config.token_budget))
+        pool_dim = model.head_dim
         if kernel_route(self.device, config.attention):
-            # refuse here what the kernel would refuse at the first step
+            # refuse here what the kernel would refuse at the first step,
+            # and pad the pools once to the head dim the kernel runs at,
+            # so that no step pads them
             check_kernel_geometry(model.head_dim, self._tq)
+            pool_dim = kernel_head_dim(model.head_dim)
 
         shape = (config.num_blocks, config.block_size, model.n_heads,
-                 model.head_dim)
+                 pool_dim)
         self._k_pools = [torch.zeros(shape, dtype=config.dtype,
                                      device=self.device)
                          for _ in range(model.n_layers)]

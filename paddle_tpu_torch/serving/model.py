@@ -171,8 +171,11 @@ class GPTServingModel(nn.Module):
                    attn_impl: str = "auto", logit_rows=None):
         """One serving step over ``T`` token rows (see module doc).
 
-        ``k_pools``/``v_pools``: per-layer ``[N, B, H, D]`` pools, updated
-        in place. ``tokens``/``positions`` ``[T]`` int32. Segment metadata
+        ``k_pools``/``v_pools``: per-layer ``[N, B, H, Dp]`` pools, updated
+        in place; ``Dp >= D`` (the engine pads its pools to the head dim
+        the attention kernel runs at): K/V fill the first ``D`` lanes, the
+        pad lanes stay as they are (zero), and q enters attention padded
+        with zeros, which leaves every score unchanged. ``tokens``/``positions`` ``[T]`` int32. Segment metadata
         as in :func:`~paddle_tpu_torch.ops.ragged_paged_attention_chunked`;
         ``row_seg [T]`` is each row's segment. The first ``n_active`` rows
         are live (all when None) and only they write K/V: the rest are pad
@@ -183,6 +186,8 @@ class GPTServingModel(nn.Module):
         n_heads, head_dim, embed = self.n_heads, self.head_dim, self.embed_dim
         block_size = k_pools[0].shape[1]
         pool_rows = k_pools[0].shape[0] * block_size
+        pool_dim = k_pools[0].shape[-1]
+        pad = pool_dim - head_dim
         act = (lambda x: F.gelu(x, approximate="tanh")) \
             if self.activation == "gelu" else F.relu
 
@@ -207,16 +212,19 @@ class GPTServingModel(nn.Module):
             q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]       # [T, H, D]
             if self.use_rope:
                 q, k = _rope(q, cos, sin), _rope(k, cos, sin)
-            kp.view(pool_rows, n_heads, head_dim).index_copy_(
-                0, write_idx, k[:n_live].to(kp.dtype))
-            vp.view(pool_rows, n_heads, head_dim).index_copy_(
-                0, write_idx, v[:n_live].to(vp.dtype))
-            # the kernel takes q in the pools' dtype; the reference hands
-            # its fp32 q to attention as it is
+            kp.view(pool_rows, n_heads, pool_dim)[..., :head_dim] \
+                .index_copy_(0, write_idx, k[:n_live].to(kp.dtype))
+            vp.view(pool_rows, n_heads, pool_dim)[..., :head_dim] \
+                .index_copy_(0, write_idx, v[:n_live].to(vp.dtype))
+            # the kernel takes q in the pools' dtype (and head dim); the
+            # reference hands its fp32 q to attention as it is
+            q = q.to(kp.dtype)
             attn = ragged_paged_attention_chunked(
-                q.to(kp.dtype).contiguous(), kp, vp, seg_tables, seg_pos,
-                seg_rows, seg_row_idx, row_gather,
+                (F.pad(q, (0, pad)) if pad else q).contiguous(), kp, vp,
+                seg_tables, seg_pos, seg_rows, seg_row_idx, row_gather,
                 scale=1.0 / (head_dim ** 0.5), impl=attn_impl)
+            if pad:
+                attn = attn[..., :head_dim]
             attn = attn.reshape(-1, embed).to(h.dtype) @ layer.out_w
             if layer.out_b is not None:
                 attn = attn + layer.out_b

@@ -67,6 +67,21 @@ MIXES = [
     ([(8, 13), (8, 21), (1, 47), (5, 3)], 4, 4, 64, 16, 4, 8),
     ([(8, 1000), (8, 1008), (1, 1500)], 3, 16, 128, 64, 32, 8),  # big smem
     ([(1, 63)], 5, 1, 128, 4, 16, 1),
+    # split-KV (auto splits of 64 tokens at these shapes): rows over many
+    # splits; rows ending on a split boundary and a 1-token row at 0
+    ([(1, 700), (8, 333), (3, 1000)], 2, 4, 128, 16, 64, 8),
+    ([(1, 127), (8, 120), (1, 0)], 1, 2, 64, 16, 16, 8),
+    # head dims 16, 48 (run at 64), 256, 512
+    ([(4, 5), (1, 40), (2, 0)], 1, 4, 16, 8, 8, 4),
+    ([(6, 70), (1, 9), (3, 0)], 2, 2, 48, 16, 8, 8),
+    ([(8, 100), (1, 200), (5, 3)], 1, 2, 256, 16, 16, 8),
+    ([(8, 30), (1, 77)], 1, 1, 512, 16, 8, 8),
+    # q_tile 16 and 32, and tiles past one pass (64 rows at D 128, 16 at
+    # D 512)
+    ([(16, 90), (16, 106), (1, 63), (9, 0)], 3, 2, 128, 16, 16, 16),
+    ([(32, 200), (20, 7), (1, 31)], 2, 2, 64, 16, 16, 32),
+    ([(80, 10), (1, 5)], 0, 1, 128, 16, 8, 80),
+    ([(20, 3)], 0, 1, 512, 16, 4, 32),
 ]
 
 
@@ -102,9 +117,12 @@ def test_kernel_rejects_what_it_does_not_take(card):
                                        *meta)
     with pytest.raises(ValueError, match="int32"):
         ragged_paged_attention_chunked(q, kp, vp, meta[0].long(), *meta[1:])
-    small = [t[..., :16].contiguous() for t in (q, kp, vp)]
-    with pytest.raises(ValueError, match="head_dim"):
-        ragged_paged_attention_chunked(*small, *meta)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ragged_paged_attention_chunked(q[..., :16].contiguous(), kp, vp,
+                                       *meta)
+    wide = [torch.zeros(*t.shape[:-1], 520, device=card) for t in (q, kp, vp)]
+    with pytest.raises(ValueError, match="head_dim 1..512, got 520"):
+        ragged_paged_attention_chunked(*wide, *meta)
 
 
 def test_engine_kernel_path_matches_plain_path(card):
@@ -180,6 +198,10 @@ ROW_MIXES = [
     ([33, -4, 100, 64, 65, 128], 4, 64, 16, 8),
     ([129, 7, 300], 1, 128, 64, 4),          # big blocks, one clamped row
     ([3, 9, 16], 3, 32, 1, 16),              # one token a block
+    ([5, 0, 17, 64], 2, 16, 4, 16),          # head dim 16
+    ([33, 1, 0, 100], 2, 48, 16, 8),         # 48, run at 64
+    ([200, 7, 0, 129], 2, 256, 16, 16),      # 256: 32-token chunks
+    ([40, 3, 130], 1, 512, 8, 16),           # 512: 16-token chunks
 ]
 
 
@@ -228,9 +250,11 @@ def test_row_kernel_rejects_what_it_does_not_take(card):
         call(q, kp, vp, tables.long(), lens)
     with pytest.raises(ValueError, match="cpu"):
         call(q, kp, vp, tables, lens.cpu())
-    small = [t[..., :16].contiguous() for t in (q, kp, vp)]
-    with pytest.raises(ValueError, match="head_dim .* got 16"):
-        call(*small, tables, lens)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        call(q[..., :16].contiguous(), kp, vp, tables, lens)
+    wide = [torch.zeros(*t.shape[:-1], 520, device=card) for t in (q, kp, vp)]
+    with pytest.raises(ValueError, match="head_dim 1..512, got 520"):
+        call(*wide, tables, lens)
     with pytest.raises(ValueError, match="seq_lens"):
         call(q, kp, vp, tables, lens[:1])
     empty = call(q[:0], kp, vp, tables[:0], lens[:0])
@@ -240,10 +264,9 @@ def test_row_kernel_rejects_what_it_does_not_take(card):
 # each paged kernel with its second KV block left out, for every row or
 # segment that has two or more: (kernel, the line, the line broken)
 PAGED_MUTATIONS = {
-    "chunked": ("rpa_chunked_kernel",
-                "for (int b = 0; b < n_blocks; ++b) {",
-                "for (int b = 0; b < n_blocks; "
-                "b += 1 + (b == 0 && n_blocks > 1)) {"),
+    # (B = 16 below; the decode segments run the kernel's one-row path)
+    "chunked": ("run_row", "live[u] = p < w.hi;",
+                "live[u] = p < w.hi && (p < 16 || p >= 32 || w.hi <= 16);"),
     "row": ("rpa_row_kernel", "const bool live = tok < n_tok;",
             "const bool live = tok < n_tok && (kv_len <= block_size "
             "|| (c0 + tok) / block_size != 1);"),
@@ -290,6 +313,211 @@ def test_paged_limits_reject_a_kernel_that_skips_a_block(card, tmp_path,
           f"one KV block: {broken_err}; limit {REL_TOL[torch.bfloat16]}")
     for kind in PAGED_MUTATIONS:
         assert right[kind] <= REL_TOL[torch.bfloat16] < broken_err[kind]
+
+
+def decode_segments(dtype, device, n_rows=64, seed=23):
+    """A full-width decode batch (H 16, D 128, B 16, MAXB 128, rows of
+    1..2048 tokens) as 1-row segments, and its plain result."""
+    lens = np.random.RandomState(seed).randint(1, 2049, n_rows).tolist()
+    q, kp, vp, tables, seq_lens = row_inputs(lens, 16, 128, 16, 128, dtype,
+                                             device, seed=seed)
+    args = (q, kp, vp, *as_segments(tables, seq_lens))
+    return args, ragged_paged_attention_chunked(*args, impl="torch")
+
+
+def test_paged_limit_rejects_a_kernel_that_skips_a_split(card, tmp_path,
+                                                         monkeypatch):
+    """The bf16 limits tell a right split-KV merge from one that leaves
+    split 1 out (rows of more than one 256-token split): the segmented
+    kernel rebuilt so must miss REL_TOL on a full-width decode batch, the
+    right kernel meets it. Prints both readings."""
+    import ctypes
+    import subprocess
+
+    args, want = decode_segments(torch.bfloat16, card)
+    monkeypatch.setattr(_rpa_module(), "split_plan",
+                        lambda *a: (256, -(-a[2] // 256)))
+    call = lambda: ragged_paged_attention_chunked(*args, impl="cuda")
+    right = rel_err(call(), want)
+    src = tmp_path / "split.cu"
+    src.write_text(_mutated_source(
+        "rpa_chunked_kernel",
+        "for (int j = 0; j < n_live; ++j) {  // the splits' states, merged",
+        "for (int j = 0; j < n_live; j += 1 + (j == 0)) {",
+        "ragged_paged_attention"))
+    lib = tmp_path / "libsplit.so"
+    out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                          str(src)], capture_output=True, text=True)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    monkeypatch.setitem(_build._LIBS, "ragged_paged_attention",
+                        ctypes.CDLL(str(lib)))
+    broken = rel_err(call(), want)
+    print(f"segmented bf16 rel err, right kernel: {right}; merge without "
+          f"split 1: {broken}; limit {REL_TOL[torch.bfloat16]}")
+    assert right <= REL_TOL[torch.bfloat16] < broken
+
+
+def _rpa_module():
+    import sys
+
+    # the module (ops.ragged_paged_attention is the entry-point function)
+    return sys.modules["paddle_tpu_torch.ops.ragged_paged_attention"]
+
+
+@pytest.mark.parametrize("split", [64, 192, 1024, 2048])
+def test_chunked_kernel_matches_plain_at_any_split(card, split, monkeypatch):
+    """One fp32 decode batch at splits of 64 to 2048 tokens (32 splits to
+    one): the kernel meets the fp32 limits at each, and leaves the merge
+    counters zero."""
+    rpa = _rpa_module()
+    args, want = decode_segments(torch.float32, card, n_rows=24, seed=31)
+    monkeypatch.setattr(rpa, "split_plan",
+                        lambda *a: (split, -(-a[2] // split)))
+    got = ragged_paged_attention_chunked(*args, impl="cuda")
+    torch.cuda.synchronize()
+    _close(got, want, torch.float32)
+    assert all(int(counters.abs().sum().item()) == 0
+               for counters, _ in rpa._SCRATCH.values())
+
+
+def test_chunked_call_makes_no_host_sync(card):
+    """Segmented calls that split (a full-width decode batch) and that pad
+    the head dim (48 to 64) run with every device-to-host sync made an
+    error: the launcher reads nothing back from the card."""
+    args, want = decode_segments(torch.bfloat16, card, n_rows=16)
+    small, _ = step_inputs([(8, 100), (1, 7)], 1, 2, 48, 16, 16, 8,
+                           num_blocks=64, dtype=torch.bfloat16, device=card,
+                           seed=3)
+    ragged_paged_attention_chunked(*args)  # builds and loads the kernel
+    ragged_paged_attention_chunked(*small)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ragged_paged_attention_chunked(*args)
+        got_small = ragged_paged_attention_chunked(*small)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert _build.launches() == {KERNEL_NAME: 2}
+    _close(got, want, torch.bfloat16)
+    _close(got_small, ragged_paged_attention_chunked(*small, impl="torch"),
+           torch.bfloat16)
+
+
+def test_engine_serves_head_dim_16_at_q_tile_16(card):
+    """A model at head dim 16 (the gpt_tiny preset's) served through the
+    kernel at q_tile 16 gives the plain attention's greedy streams."""
+    from paddle_tpu_torch.serving import (Engine, EngineConfig,
+                                          GPTServingModel, SamplingParams)
+
+    rs = np.random.RandomState(1)
+    e, h, d, ffn, vocab = 64, 4, 16, 256, 256
+    mk = lambda *s: (rs.randn(*s) * 0.25).astype(np.float32)
+    layers = [dict(ln_scale=np.ones(e, np.float32),
+                   ln_bias=np.zeros(e, np.float32), qkv_w=mk(3, h, d, e),
+                   out_w=mk(e, e), ffn_ln_scale=np.ones(e, np.float32),
+                   ffn_ln_bias=np.zeros(e, np.float32), ffn1_w=mk(e, ffn),
+                   ffn2_w=mk(ffn, e)) for _ in range(2)]
+    model = GPTServingModel(mk(vocab, e), mk(e, vocab), layers, n_heads=h,
+                            head_dim=d, max_position=128)
+    prompts = [list(rs.randint(0, vocab, n)) for n in (37, 5, 20, 1, 16)]
+    outs = {}
+    for attention in ("cuda", "torch"):
+        engine = Engine(model, EngineConfig(
+            max_slots=4, token_budget=32, block_size=8, num_blocks=64,
+            max_blocks_per_seq=16, attention=attention, q_tile=16))
+        outs[attention] = engine.generate(
+            prompts, SamplingParams(max_new_tokens=8))
+    assert outs["cuda"] == outs["torch"]
+
+
+# the segmented kernel's multi-row paths with KV chunk 1 of every split's
+# pass left out: path -> (dtype, function, the line, the line broken)
+_SCORE_MASK = ("const bool ok = row < w.rows && pos < w.hi && "
+               "pos <= w.row0 + row;")
+PASS_MUTATIONS = {
+    "mma": (torch.bfloat16, "run_pass_mma", _SCORE_MASK,
+            _SCORE_MASK[:-1] + " && c != 1;"),
+    "fma": (torch.float32, "chunk_group", _SCORE_MASK,
+            _SCORE_MASK[:-1] + " && (c0 - w.k0) / kChunk != 1;"),
+}
+
+
+def test_paged_limits_reject_multi_row_passes_that_skip_a_chunk(
+        card, tmp_path, monkeypatch):
+    """The limits tell right multi-row passes from broken ones: segments
+    of 8 to 16 rows at full width (H 16, D 128, B 16, MAXB 128, q_tile
+    16) run the tensor-core pass in bf16 and the FMA pass in fp32; each
+    pass rebuilt to leave KV chunk 1 of every split out must miss its
+    dtype's REL_TOL, while the right kernel meets it. Prints both
+    readings."""
+    import ctypes
+    import subprocess
+
+    segs = [(16, 300), (16, 900), (16, 1500), (16, 2000), (8, 250),
+            (8, 700), (12, 1200), (8, 1800)]
+    args = {}
+    for path, (dtype, _, _, _) in PASS_MUTATIONS.items():
+        a, _ = step_inputs(segs, 2, 16, 128, 16, 128, 16, num_blocks=2048,
+                           dtype=dtype, device=card, seed=41)
+        args[path] = (a, ragged_paged_attention_chunked(*a, impl="torch"))
+    run = lambda path: ragged_paged_attention_chunked(*args[path][0],
+                                                      impl="cuda")
+    right = {path: rel_err(run(path), args[path][1]) for path in args}
+    procs = {}
+    for path, (_, fn, line, broken) in PASS_MUTATIONS.items():
+        src = tmp_path / f"{path}.cu"
+        src.write_text(_mutated_source(fn, line, broken,
+                                       "ragged_paged_attention"))
+        lib = tmp_path / f"lib{path}.so"
+        procs[path] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    broken_err = {}
+    for path, (lib, proc) in procs.items():
+        out = proc.communicate()[0]
+        assert proc.returncode == 0, out.decode()[-2000:]
+        monkeypatch.setitem(_build._LIBS, "ragged_paged_attention",
+                            ctypes.CDLL(str(lib)))
+        broken_err[path] = rel_err(run(path), args[path][1])
+    print(f"segmented multi-row rel err, right kernel: {right}; passes "
+          f"missing KV chunk 1: {broken_err}; limits {REL_TOL}")
+    for path, (dtype, _, _, _) in PASS_MUTATIONS.items():
+        assert right[path] <= REL_TOL[dtype] < broken_err[path]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_kernel_takes_long_tables(card, dtype, monkeypatch):
+    """Tables of 40,960 positions with one split wanted for each
+    (segment, head) (TARGET_BLOCKS 1): split_plan caps the split at 8192
+    positions, whose pool rows fit shared memory beside a 16-row tile's
+    ring and pass, and the kernel meets the limits."""
+    monkeypatch.setattr(_rpa_module(), "TARGET_BLOCKS", 1)
+    args, _ = step_inputs([(16, 40000), (1, 39000), (5, 8189)], 1, 2, 128,
+                          16, 2560, 16, num_blocks=4096, dtype=dtype,
+                          device=card, seed=43)
+    got = ragged_paged_attention_chunked(*args, impl="cuda")
+    _close(got, ragged_paged_attention_chunked(*args, impl="torch"), dtype)
+
+
+def test_chunked_calls_on_two_streams_at_once(card):
+    """Two split decode batches launched on two streams, neither waiting
+    for the other, five times over: each stream merges through counters
+    and states of its own, and both outputs meet the bf16 limits."""
+    a, want_a = decode_segments(torch.bfloat16, card, n_rows=16, seed=5)
+    b, want_b = decode_segments(torch.bfloat16, card, n_rows=16, seed=6)
+    ragged_paged_attention_chunked(*a)  # builds and loads the kernel
+    torch.cuda.synchronize()
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    got = []
+    for _ in range(5):
+        for stream, args in zip(streams, (a, b)):
+            with torch.cuda.stream(stream):
+                got.append(ragged_paged_attention_chunked(*args))
+    torch.cuda.synchronize()
+    for i, out in enumerate(got):
+        _close(out, (want_a, want_b)[i % 2], torch.bfloat16)
 
 
 # ------------------------------------------------------- flash attention

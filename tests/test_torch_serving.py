@@ -831,38 +831,48 @@ def test_no_quiet_cpu_fallback(jax_model, port_model):
 
 def test_engine_refuses_kernel_geometry_at_construction(port_model):
     """When the engine's attention is the kernel's (``"cuda"``, or
-    ``"auto"`` on a card), a head_dim or q_tile the kernel does not take
-    raises in ``Engine.__init__``, not at the first step. The plain route
-    takes any geometry."""
+    ``"auto"`` on a card), a head_dim the kernels do not take (past 512)
+    raises in ``Engine.__init__``, not at the first step; every head dim
+    up to 512 and every q_tile is taken, and the pools are allocated at
+    the head dim the kernel runs at (48 -> 64), once. The plain route
+    takes any geometry and keeps the model's head dim."""
     from paddle_tpu_torch.serving.engine import kernel_route
 
     assert kernel_route("cuda", "auto") and kernel_route("cuda:1", "cuda")
     assert kernel_route("cpu", "cuda")
     assert not kernel_route("cpu", "auto")
     assert not kernel_route("cuda", "torch")
-    with pytest.raises(ValueError, match="head_dim"):  # HDIM = 16
-        Engine(port_model, EngineConfig(**dict(ENGINE_CFG,
-                                               attention="cuda")),
-               device="cpu")
     rs = np.random.RandomState(0)
-    e, d = 64, 32
-    layer = dict(ln_scale=np.ones(e, np.float32),
-                 ln_bias=np.zeros(e, np.float32),
-                 qkv_w=rs.randn(3, 2, d, e).astype(np.float32),
-                 out_w=rs.randn(e, e).astype(np.float32),
-                 ffn_ln_scale=np.ones(e, np.float32),
-                 ffn_ln_bias=np.zeros(e, np.float32),
-                 ffn1_w=rs.randn(e, 64).astype(np.float32),
-                 ffn2_w=rs.randn(64, e).astype(np.float32))
-    model = GPTServingModel(rs.randn(VOCAB, e).astype(np.float32),
-                            rs.randn(e, VOCAB).astype(np.float32), [layer],
-                            n_heads=2, head_dim=d, max_position=64,
-                            device="cpu")
+
+    def model_of(d, e):
+        layer = dict(ln_scale=np.ones(e, np.float32),
+                     ln_bias=np.zeros(e, np.float32),
+                     qkv_w=rs.randn(3, e // d, d, e).astype(np.float32),
+                     out_w=rs.randn(e, e).astype(np.float32),
+                     ffn_ln_scale=np.ones(e, np.float32),
+                     ffn_ln_bias=np.zeros(e, np.float32),
+                     ffn1_w=rs.randn(e, 64).astype(np.float32),
+                     ffn2_w=rs.randn(64, e).astype(np.float32))
+        return GPTServingModel(rs.randn(VOCAB, e).astype(np.float32),
+                               rs.randn(e, VOCAB).astype(np.float32),
+                               [layer], n_heads=e // d, head_dim=d,
+                               max_position=64, device="cpu")
+
     cfg = dict(ENGINE_CFG, token_budget=16, attention="cuda")
+    with pytest.raises(ValueError, match="head_dim 1..512, got 520"):
+        Engine(model_of(520, 520), EngineConfig(**cfg), device="cpu")
     with pytest.raises(ValueError, match="q_tile"):
-        Engine(model, EngineConfig(**dict(cfg, q_tile=16)), device="cpu")
-    Engine(model, EngineConfig(**dict(cfg, q_tile=8)), device="cpu")
-    Engine(port_model, EngineConfig(**ENGINE_CFG), device="cpu")
+        Engine(port_model, EngineConfig(**dict(cfg, q_tile=0)),
+               device="cpu")
+    wide = Engine(model_of(48, 96), EngineConfig(**dict(cfg, q_tile=16)),
+                  device="cpu")
+    assert wide._k_pools[0].shape[-1] == wide._v_pools[0].shape[-1] == 64
+    tiny = Engine(port_model, EngineConfig(**dict(cfg, q_tile=16)),
+                  device="cpu")  # HDIM = 16: a kernel head dim
+    assert tiny._k_pools[0].shape[-1] == HDIM
+    plain = Engine(model_of(48, 96), EngineConfig(**ENGINE_CFG),
+                   device="cpu")
+    assert plain._k_pools[0].shape[-1] == 48
 
 
 def test_same_device_resolves_the_current_card(monkeypatch):
