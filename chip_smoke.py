@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
 card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, each printing one JSON line (``{"phase": ...}``):
 
@@ -79,11 +79,20 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    operations and the bound from the active pairs; ``sparse_library``
    times torch's scaled_dot_product_attention with the expanded boolean
    mask, forward and backward, as the yardstick.
+   The bf16 dQ and dK/dV are the wgmma kernels (``bsa_dq_wgmma_kernel``,
+   ``bsa_dkv_wgmma_kernel``); each kernel's ptxas registers and spills.
+   With ``--parent DIR`` (another checkout, such as the parent commit's
+   ``git archive``), ``sparse_parent`` times that tree's bf16 kernels
+   beside this tree's on the same inputs (parent, this, this, parent).
 10. ``sparse_path`` — ``nn.functional.sparse_attention`` as users call
-   it, fp32, [2, 16, 4096, 128] with BigBird's pattern as an int32 CSR,
-   forward and backward twice: each kernel launches once a call, the
-   second call takes the route from the cache with no host copy, and out
-   and the q/k/v gradients agree with the dense masked composition.
+   it, [2, 16, 4096, 128] with BigBird's pattern as an int32 CSR, forward
+   and backward: fp32 twice and bf16 once. Each kernel launches once a
+   call, the later calls take the route from the cache with no host
+   copy; fp32 out and q/k/v gradients agree with the dense masked
+   composition, bf16 with the plain versions on the same route.
+   ``wide`` — the six flash and block-sparse entry points at padded head
+   dims 256 and 512 (bf16) and 256 (fp32), the wide kernels, against
+   their plain versions: errors, times, bounds, ptxas.
 11. ``layer_norm`` — the LayerNorm kernel against its plain version at
    [8192, 2048] and [16, 2048], fp32 and bf16, with
    ``torch.nn.functional.layer_norm`` as the yardstick; then
@@ -310,6 +319,10 @@ def phase_kernel(device, peaks, timer):
 
     rng = np.random.default_rng(SEED)
     tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    # bf16: p enters the tensor cores' P.V as a high and a low bf16 part,
+    # so the mix stays within 1e-4 of the fp32-p plain version
+    rel_tol = {torch.float32: REL_TOL[torch.float32],
+               torch.bfloat16: P16_REL_TOL}
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         args, n_live, n_segs = rpa_inputs(rng, device, dtype)
@@ -320,16 +333,16 @@ def phase_kernel(device, peaks, timer):
         err = (got.float() - want.float()).abs().max().item()
         rel = rel_err(got, want)
         pad_zero = bool((got[n_live:] == 0).all().item())
-        if not (err <= tol[dtype] and rel <= REL_TOL[dtype] and pad_zero
+        if not (err <= tol[dtype] and rel <= rel_tol[dtype] and pad_zero
                 and torch.isfinite(got).all().item()):
             raise AssertionError(
                 f"kernel disagrees with the plain version ({dtype}): max "
                 f"abs err {err} (tol {tol[dtype]}), relative norm err "
-                f"{rel} (limit {REL_TOL[dtype]}), inactive rows zero: "
+                f"{rel} (limit {rel_tol[dtype]}), inactive rows zero: "
                 f"{pad_zero}")
         ms, plain_ms = timer.median_ms(kernel), timer.median_ms(plain)
         res = dict(dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
-                   tol=tol[dtype], rel_err=rel, rel_tol=REL_TOL[dtype],
+                   tol=tol[dtype], rel_err=rel, rel_tol=rel_tol[dtype],
                    inactive_rows_zero=pad_zero,
                    segments=n_segs, rows=n_live, ms=ms, plain_ms=plain_ms,
                    **rpa_bound(args, peaks), peaks_of=peaks["name"])
@@ -984,6 +997,9 @@ def phase_preempt(device, cfg, n_layers=4):
 # test_flash_limits_reject_a_kernel_that_skips_a_tile).
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# row 1 in bf16 at the serving mix: its tensor-core pass keeps p to about
+# 16 bits (a high and a low bf16 part), as the reference's fp32 p
+P16_REL_TOL = 1e-4
 
 
 def rel_err(got, want) -> float:
@@ -1055,16 +1071,22 @@ FLASH_KERNEL_OF = {
 }
 
 
-def ptxas_of(report: str, kernel: str, head_dim: int):
+def ptxas_of(report: str, kernel: str, head_dim=None, dtype=None):
     """Registers and spill bytes of ``kernel``'s instantiation at
-    ``head_dim``, read from a ``_build.ptxas_report`` (mangled names:
-    ``<kernel>I...Li<head_dim>E``)."""
+    ``head_dim`` (mangled ``<kernel>I...Li<head_dim>E``), or of a wide
+    kernel's for ``dtype`` (``<kernel>If`` for float,
+    ``<kernel>I13__nv_bfloat16`` for bfloat16), read from a
+    ``_build.ptxas_report``."""
     found, cur = {}, False
     for line in report.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            at = name.find(kernel + "I")
-            cur = at >= 0 and f"Li{head_dim}E" in name[at:]
+            if head_dim is None:
+                cur = kernel + ("If" if dtype == torch.float32
+                                else "I13__nv_bfloat16") in name
+            else:
+                at = name.find(kernel + "I")
+                cur = at >= 0 and f"Li{head_dim}E" in name[at:]
         elif cur and "spill stores" in line:
             nums = [int(x) for x in line.split() if x.isdigit()]
             found.update(spill_store_bytes=nums[1], spill_load_bytes=nums[2])
@@ -1310,20 +1332,36 @@ def agreement_lse(what: str, got, want):
                      want.masked_fill(inf, 0.0))
 
 
-def phase_sparse(device, peaks, timer):
+# the kernel each block-sparse entry point launches at D = 128, by dtype
+BSA_KERNEL_OF = {
+    ("fwd", torch.bfloat16): "bsa_fwd_mma_kernel",
+    ("dq", torch.bfloat16): "bsa_dq_wgmma_kernel",
+    ("dkv", torch.bfloat16): "bsa_dkv_wgmma_kernel",
+    ("fwd", torch.float32): "bsa_fwd_kernel",
+    ("dq", torch.float32): "bsa_dq_kernel",
+    ("dkv", torch.float32): "bsa_dkv_kernel",
+}
+
+
+def phase_sparse(device, peaks, timer, parent=None):
     """The three block-sparse kernels against their plain versions at the
     sparse path's shapes (B=2, H=16, S=4096, D=128 -> BH=32) on BigBird's
     pattern at 128-token blocks, fp32 and bf16, plus a causal bf16 case
     at blk_q 256 / blk_k 128 with fully masked rows; median times with
     the L2 cache flushed; bytes, operations and the bound from the active
-    pairs; scaled_dot_product_attention with the expanded boolean mask as
-    the yardstick."""
+    pairs; each kernel's ptxas registers and spills;
+    scaled_dot_product_attention with the expanded boolean mask, forward
+    and backward, as the yardstick. With ``parent`` (the root of another
+    checkout), that tree's bf16 kernels on the same BigBird inputs too,
+    timed in the order parent, this, this, parent (``sparse_parent``)."""
+    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops.block_sparse_attention import (
         block_mask_spec, bsa_dkv, bsa_dq, bsa_fwd)
 
     sh = SPARSE_SHAPE
     bh, s, d = sh["batch"] * sh["heads"], sh["seq"], sh["head_dim"]
     scale = 1.0 / d ** 0.5
+    report = _build.ptxas_report("block_sparse_attention")
     mask = bigbird_mask(s // 128)
     g = torch.Generator(device=device).manual_seed(SEED + 8)
     results = {}
@@ -1354,7 +1392,10 @@ def phase_sparse(device, peaks, timer):
             errs = [(agreement_lse if t.dtype == torch.float32 and t.dim() == 2
                      else agreement)(f"block-sparse {kind} ({tag})", a, t)
                     for a, t in zip(got, want)]
-            res = dict(kind=kind, case=tag, max_abs_err=max(e for e, _ in errs),
+            kernel = BSA_KERNEL_OF[(kind, dtype)]
+            res = dict(kind=kind, case=tag, kernel=kernel,
+                       ptxas=ptxas_of(report, kernel, d),
+                       max_abs_err=max(e for e, _ in errs),
                        rel_err=max(r for _, r in errs), tol=TOL[dtype],
                        rel_tol=REL_TOL[dtype], bh=bh, seq=s, head_dim=d,
                        blk_q=spec.blk_q, blk_k=spec.blk_k, causal=causal,
@@ -1379,8 +1420,134 @@ def phase_sparse(device, peaks, timer):
             results["library"] = masked_sdpa_yardstick(q, k, v, do, spec,
                                                        timer, sh["batch"])
             emit("sparse_library", **results["library"])
+            if parent is not None:
+                sparse_parent(parent, calls, mask, (q, k, v, do, lse, delta),
+                              causal, scale, timer)
         del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
+    return results
+
+
+def sparse_parent(parent, calls, mask, tensors, causal, scale, timer):
+    """The parent tree's three bf16 block-sparse kernels and this tree's
+    on the same inputs, each timed as in ``sparse`` in the order parent,
+    this, this, parent; the parent's held against this tree's plain
+    versions too."""
+    from paddle_tpu_torch.ops.paged_splits import load_tree
+
+    q, k, v, do, lse, delta = tensors
+    mod = load_tree(parent, "ops.block_sparse_attention")
+    spec = mod.block_mask_spec(mask, q.shape[1], k.shape[1], causal)
+    theirs = {
+        "fwd": lambda: mod.bsa_fwd(q, k, v, spec, causal, scale,
+                                   impl="cuda"),
+        "dq": lambda: mod.bsa_dq(q, k, v, do, lse, delta, spec, causal,
+                                 scale, impl="cuda"),
+        "dkv": lambda: mod.bsa_dkv(q, k, v, do, lse, delta, spec, causal,
+                                   scale, impl="cuda"),
+    }
+    trees = {"parent": theirs,
+             "change": {kind: (lambda c=c: c("cuda"))
+                        for kind, c in calls.items()}}
+    for kind in theirs:
+        got, want = theirs[kind](), calls[kind]("torch")
+        if torch.is_tensor(got):
+            got, want = (got,), (want,)
+        for a, b in zip(got, want):
+            (agreement_lse if b.dtype == torch.float32 and b.dim() == 2
+             else agreement)(f"parent block-sparse {kind}", a, b)
+    for rnd, tree in enumerate(("parent", "change", "change", "parent")):
+        for kind, call in trees[tree].items():
+            emit("sparse_parent", tree=tree, round=rnd, kind=kind,
+                 name=f"block_sparse_attention_{kind}", dtype="bfloat16",
+                 ms=timer.median_ms(call))
+
+
+# The wide kernels' cases: (dtype, padded head dim). Flash at BH 16,
+# S 1024, causal; block-sparse at BH 8, S 2048 on BigBird's pattern at
+# 128-token blocks. Smaller than the main shapes: these kernels run on
+# the FMA units and repeat the scores for each 64-column output slice.
+WIDE_CASES = ((torch.bfloat16, 256), (torch.bfloat16, 512),
+              (torch.float32, 256))
+WIDE_SHAPE = dict(flash_bh=16, flash_seq=1024, sparse_bh=8, sparse_seq=2048)
+
+
+def phase_wide(device, peaks, timer):
+    """The six flash and block-sparse entry points at padded head dims
+    past 128 (the wide kernels: wide_fwd_kernel, wide_dq_kernel,
+    wide_dkv_kernel in either family) against their plain versions: max
+    abs and relative norm errors, median times with the L2 flushed,
+    bytes, operations and the bound, ptxas registers and spills."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import block_sparse_attention as bsa
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    sh = WIDE_SHAPE
+    reports = {fam: _build.ptxas_report(src) for fam, src in
+               (("flash", "flash_attention"),
+                ("sparse", "block_sparse_attention"))}
+    mask = bigbird_mask(sh["sparse_seq"] // 128)
+    g = torch.Generator(device=device).manual_seed(SEED + 10)
+    results = {}
+    for dtype, d in WIDE_CASES:
+        scale = 1.0 / d ** 0.5
+        for fam in ("flash", "sparse"):
+            bh, s = sh[f"{fam}_bh"], sh[f"{fam}_seq"]
+            rnd = lambda: torch.randn(bh, s, d, generator=g,
+                                      device=device).to(dtype)
+            q, k, v, do = rnd(), rnd(), rnd(), rnd()
+            if fam == "flash":
+                causal = True
+                args = (causal, scale, 0.0, 0)
+                mod, pfx = fa, "flash"
+            else:
+                causal = False
+                args = (bsa.block_mask_spec(mask, s, s, causal), causal,
+                        scale)
+                mod, pfx = bsa, "bsa"
+            fwd, dq, dkv = (getattr(mod, f"{pfx}_{n}")
+                            for n in ("fwd", "dq", "dkv"))
+            out, lse = fwd(q, k, v, *args, impl="torch")
+            delta = (do.float() * out.float()).sum(-1)
+            calls = {
+                "fwd": lambda impl: fwd(q, k, v, *args, impl=impl),
+                "dq": lambda impl: dq(q, k, v, do, lse, delta, *args,
+                                      impl=impl),
+                "dkv": lambda impl: dkv(q, k, v, do, lse, delta, *args,
+                                        impl=impl),
+            }
+            tag = f"{str(dtype).replace('torch.', '')}_d{d}"
+            for kind, call in calls.items():
+                _build.reset_launches()
+                got = call("cuda")
+                launches = _build.launches()
+                want = call("torch")
+                if torch.is_tensor(got):
+                    got, want = (got,), (want,)
+                torch.cuda.synchronize()
+                errs = [(agreement_lse if t.dtype == torch.float32
+                         and t.dim() == 2 else agreement)(
+                            f"wide {fam} {kind} ({tag})", a, t)
+                        for a, t in zip(got, want)]
+                work = (flash_work(kind, bh, s, s, d, q.element_size(),
+                                   causal) if fam == "flash" else
+                        sparse_work(kind, args[0], bh, s, s, d,
+                                    q.element_size(), causal))
+                kernel = f"wide_{kind}_kernel"
+                res = dict(family=fam, kind=kind, case=tag, kernel=kernel,
+                           launches=launches,
+                           ptxas=ptxas_of(reports[fam], kernel, dtype=dtype),
+                           max_abs_err=max(e for e, _ in errs),
+                           rel_err=max(r for _, r in errs), tol=TOL[dtype],
+                           rel_tol=REL_TOL[dtype], bh=bh, seq=s, head_dim=d,
+                           causal=causal,
+                           ms=timer.median_ms(lambda: call("cuda")),
+                           plain_ms=timer.median_ms(lambda: call("torch")),
+                           **bound_of(*work, dtype, peaks))
+                emit("wide", name=f"{fam}_{kind}", **res)
+                results[(fam, kind, tag)] = res
+            del q, k, v, do, out, lse, delta
+            torch.cuda.empty_cache()
     return results
 
 
@@ -1420,12 +1587,15 @@ def bigbird_csr(mask, blk: int, batch: int, heads: int, device):
 
 def phase_sparse_path(device, launches_of, reset_launches):
     """The entry point as users call it: paddle_tpu_torch.nn.functional.
-    sparse_attention on [B, H, T, D] fp32 tensors with requires_grad and
+    sparse_attention on [B, H, T, D] tensors with requires_grad and
     BigBird's pattern as an int32 CSR, then (out * w).sum().backward().
-    Each of the three kernels must launch once; a second call must take
-    the route from the cache, copying nothing to the host; out and every
-    gradient must agree with the dense masked composition (the plain
-    route) within 1e-4 in relative norm."""
+    fp32 twice (first call, then from the route cache), and bf16 once (the
+    tensor-core kernels; the fp32 calls run the FMA ones). Each of the
+    three kernels must launch once a call; the later calls must take the
+    route from the cache, copying nothing to the host; out and every
+    gradient must agree, fp32 with the dense masked composition (the
+    plain route) within 1e-4 in relative norm, bf16 with the block-sparse
+    plain versions on the same route within the bf16 limit."""
     from paddle_tpu_torch.nn import functional as TF
     from paddle_tpu_torch.nn.functional import attention as att
     from paddle_tpu_torch.ops.block_sparse_attention import KERNEL_NAMES
@@ -1438,30 +1608,34 @@ def phase_sparse_path(device, launches_of, reset_launches):
     g = torch.Generator(device=device).manual_seed(SEED + 9)
     q, k, v, w = (torch.randn(b, h, t, d, generator=g, device=device)
                   for _ in range(4))
-    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     analyse = mock.Mock(wraps=att._analyse)
+
+    def run(dtype):
+        leaves = [x.to(dtype, copy=True).requires_grad_(True)
+                  for x in (q, k, v)]
+        torch.cuda.synchronize()
+        reset_launches()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = TF.sparse_attention(*leaves, off, cols)
+        ev[1].record()
+        (out * w.to(dtype)).sum().backward()
+        ev[2].record()
+        torch.cuda.synchronize()
+        timing = dict(wall_ms=(time.perf_counter() - t0) * 1e3,
+                      forward_ms=ev[0].elapsed_time(ev[1]),
+                      backward_ms=ev[1].elapsed_time(ev[2]),
+                      launches=launches_of(), analyses=analyse.call_count)
+        return [out.detach()] + [x.grad for x in leaves], timing
+
     timing = {}
     with mock.patch.object(att, "_analyse", analyse):
         for call in ("first", "cached"):
-            for x in leaves:
-                x.grad = None
-            torch.cuda.synchronize()
-            reset_launches()
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            t0 = time.perf_counter()
-            ev[0].record()
-            out = TF.sparse_attention(*leaves, off, cols)
-            ev[1].record()
-            (out * w).sum().backward()
-            ev[2].record()
-            torch.cuda.synchronize()
-            timing[call] = dict(wall_ms=(time.perf_counter() - t0) * 1e3,
-                                forward_ms=ev[0].elapsed_time(ev[1]),
-                                backward_ms=ev[1].elapsed_time(ev[2]),
-                                launches=launches_of(),
-                                analyses=analyse.call_count)
-    got = [out.detach()] + [x.grad for x in leaves]
-    del out
+            got, timing[call] = run(torch.float32)
+        got_bf16, timing["bf16"] = run(torch.bfloat16)
+        with route("torch"):
+            want_bf16, plain_bf16 = run(torch.bfloat16)
     plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
     reset_launches()
     ref = att._sa(*plain, off, cols)
@@ -1469,26 +1643,31 @@ def phase_sparse_path(device, launches_of, reset_launches):
     torch.cuda.synchronize()
     plain_launches = launches_of()
     want = [ref.detach()] + [x.grad for x in plain]
-    rel = {name: rel_err(a, r)
-           for name, a, r in zip(("out", "dq", "dk", "dv"), got, want)}
+    names = ("out", "dq", "dk", "dv")
+    rel = {name: rel_err(a, r) for name, a, r in zip(names, got, want)}
+    rel_bf16 = {name: rel_err(a, r)
+                for name, a, r in zip(names, got_bf16, want_bf16)}
     once = {n: 1 for n in KERNEL_NAMES}
     ok = (all(r <= 1e-4 for r in rel.values())
-          and all(torch.isfinite(a).all().item() for a in got)
-          and timing["first"]["launches"] == once
-          and timing["cached"]["launches"] == once
-          and timing["first"]["analyses"] == 1
-          and timing["cached"]["analyses"] == 1 and plain_launches == {})
-    emit("sparse_path", batch=b, heads=h, seq=t, head_dim=d, dtype="float32",
+          and all(r <= REL_TOL[torch.bfloat16] for r in rel_bf16.values())
+          and all(torch.isfinite(a).all().item() for a in got + got_bf16)
+          and all(timing[c]["launches"] == once for c in timing)
+          and all(timing[c]["analyses"] == 1 for c in timing)
+          and plain_launches == {} and plain_bf16["launches"] == {})
+    emit("sparse_path", batch=b, heads=h, seq=t, head_dim=d,
+         dtypes=["float32", "float32", "bfloat16"],
          pattern="BigBird ITC, 128-token blocks: window 3, global 2, "
                  "random 3", active_block_pairs=int(mask.sum()),
          block_pairs=int(mask.size), csr_nnz_per_head=int(cols.shape[-1]),
-         rel_err=rel, rel_tol=1e-4, **timing, ok=ok)
+         rel_err=rel, rel_tol=1e-4, rel_err_bf16=rel_bf16,
+         rel_tol_bf16=REL_TOL[torch.bfloat16], plain_bf16=plain_bf16,
+         **timing, ok=ok)
     if not ok:
-        raise AssertionError("sparse_attention: kernel route and dense "
+        raise AssertionError("sparse_attention: kernel route and plain "
                              "route disagree, or the route was not the "
                              "kernels' or not cached")
     launches = timing["first"]["launches"]
-    del q, k, v, w, leaves, plain, ref, got, want, off, cols
+    del q, k, v, w, plain, ref, got, want, got_bf16, want_bf16, off, cols
     torch.cuda.empty_cache()
     return launches
 
@@ -1768,6 +1947,14 @@ def kernel_entry(name, source, replaces, launches, res, library_ms):
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default=None,
+                    help="root of another checkout (such as the parent "
+                         "commit's git archive): the sparse phase times its "
+                         "bf16 block-sparse kernels beside this tree's")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1816,9 +2003,10 @@ def main() -> int:
 
     flash = phase_flash(device, peaks, timer)
     xent = phase_xent(device, peaks, timer)
-    sparse = phase_sparse(device, peaks, timer)
+    sparse = phase_sparse(device, peaks, timer, opts.parent)
     sparse_launches = phase_sparse_path(device, _build.launches,
                                         _build.reset_launches)
+    phase_wide(device, peaks, timer)
     ln = phase_layer_norm(device, peaks, timer, _build.launches,
                           _build.reset_launches)
     del timer

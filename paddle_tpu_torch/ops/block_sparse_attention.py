@@ -40,8 +40,9 @@ from . import _build
 from .flash_attention import _check as check_tensors
 
 __all__ = ["block_sparse_attention", "local_global_mask", "supports",
-           "BlockMask", "block_mask_spec", "bsa_fwd", "bsa_dq", "bsa_dkv",
-           "bsa_fwd_torch", "bsa_dq_torch", "bsa_dkv_torch", "KERNEL_NAMES"]
+           "BlockMask", "heavy_first", "block_mask_spec", "bsa_fwd",
+           "bsa_dq", "bsa_dkv", "bsa_fwd_torch", "bsa_dq_torch",
+           "bsa_dkv_torch", "KERNEL_NAMES"]
 
 KERNEL_NAMES = ("block_sparse_attention_fwd", "block_sparse_attention_dq",
                 "block_sparse_attention_dkv")
@@ -111,28 +112,40 @@ def _compact_kv(mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return rows, rcounts
 
 
+def heavy_first(counts: np.ndarray) -> np.ndarray:
+    """Block indices by list length, longest first (ties in index order),
+    int32: the order the wgmma kernels launch their blocks in, so that a
+    long list (BigBird's global blocks) does not start last and set the
+    tail."""
+    return np.argsort(-counts, kind="stable").astype(np.int32)
+
+
 class BlockMask:
     """One pattern's compactions (the reference's ``_MaskSpec``): the
     block mask as the kernels see it (after the causal drop), block sizes,
-    the q-major and kv-major lists on the host, and their int32 device
-    copies, made once per device."""
+    the q-major and kv-major lists on the host, their launch orders
+    (:func:`heavy_first`), and their int32 device copies, made once per
+    device."""
 
     def __init__(self, mask: np.ndarray, blk_q: int, blk_k: int):
         self.mask = mask
         self.blk_q, self.blk_k = blk_q, blk_k
         self.cols, self.counts = _compact(mask)
         self.rows, self.rcounts = _compact_kv(mask)
+        self.order_q = heavy_first(self.counts)
+        self.order_kv = heavy_first(self.rcounts)
         self._on: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
 
     def lists(self, device) -> Tuple[torch.Tensor, ...]:
-        """``(cols, counts, rows, rcounts)`` as int32 tensors on
-        ``device``."""
+        """``(cols, counts, order_q, rows, rcounts, order_kv)`` as int32
+        tensors on ``device``."""
         device = torch.device(device)
         got = self._on.get(device)
         if got is None:
             got = self._on[device] = tuple(
                 torch.from_numpy(a).to(device) for a in
-                (self.cols, self.counts, self.rows, self.rcounts))
+                (self.cols, self.counts, self.order_q, self.rows,
+                 self.rcounts, self.order_kv))
         return got
 
 
@@ -271,12 +284,12 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     if lib.bsa_fwd_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # lists, width, bh, sq, sk, head_dim, blk_q, blk_k, causal, scale,
-        # dtype, stream
-        tail = [p, p] + [i] * 8 + [f, i, p]
-        lib.bsa_fwd_launch.argtypes = [p] * 5 + tail
-        lib.bsa_dq_launch.argtypes = [p] * 7 + tail
-        lib.bsa_dkv_launch.argtypes = [p] * 8 + tail
+        # lists (and the backward's launch order), width, bh, sq, sk,
+        # head_dim, blk_q, blk_k, causal, scale, dtype, stream
+        tail = [i] * 8 + [f, i, p]
+        lib.bsa_fwd_launch.argtypes = [p] * 7 + tail
+        lib.bsa_dq_launch.argtypes = [p] * 10 + tail
+        lib.bsa_dkv_launch.argtypes = [p] * 11 + tail
         for fn in (lib.bsa_fwd_launch, lib.bsa_dq_launch, lib.bsa_dkv_launch):
             fn.restype = ctypes.c_int
         lib.bsa_error_string.argtypes = [i]
@@ -286,8 +299,8 @@ def _kernel_lib() -> ctypes.CDLL:
 
 def _check(tensors, q, k, spec: BlockMask):
     """Raise on what the kernels do not take: the flash kernels' tensor
-    checks (device, layout, dtype, [BH, S, D], head_dim 64 or 128), and
-    lists that tile the sequences."""
+    checks (device, layout, dtype, [BH, S, D], head_dim a multiple of 64
+    up to 512), and lists that tile the sequences."""
     check_tensors(tensors, q, k)
     n_q, n_kv = spec.mask.shape
     if q.shape[1] != n_q * spec.blk_q or k.shape[1] != n_kv * spec.blk_k:
@@ -313,14 +326,14 @@ def _launch(name: str, fn, ptrs, lists, width, q, k, spec, causal, scale):
 
 def bsa_fwd(q, k, v, spec: BlockMask, causal: bool, scale: float,
             impl: str = "auto"):
-    """Forward on ``[BH, S, D]`` (D 64 or 128 on the card): ``(out,
-    lse)``."""
+    """Forward on ``[BH, S, D]`` (D a multiple of 64 up to 512 on the
+    card): ``(out, lse)``."""
     if _build.pick_impl(impl, q) == "torch":
         return bsa_fwd_torch(q, k, v, spec, causal, scale)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     _check(dict(q=q, k=k, v=v, out=out, lse=lse), q, k, spec)
-    cols, counts, _, _ = spec.lists(q.device)
+    cols, counts = spec.lists(q.device)[:2]
     _launch(KERNEL_NAMES[0], "bsa_fwd_launch",
             [t.data_ptr() for t in (q, k, v, out, lse)], (cols, counts),
             cols.shape[1], q, k, spec, causal, scale)
@@ -334,10 +347,10 @@ def bsa_dq(q, k, v, do, lse, delta, spec: BlockMask, causal: bool,
     dq = torch.empty_like(q)
     _check(dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta, dq=dq), q, k,
            spec)
-    cols, counts, _, _ = spec.lists(q.device)
+    q_lists = spec.lists(q.device)[:3]
     _launch(KERNEL_NAMES[1], "bsa_dq_launch",
             [t.data_ptr() for t in (q, k, v, do, lse, delta, dq)],
-            (cols, counts), cols.shape[1], q, k, spec, causal, scale)
+            q_lists, q_lists[0].shape[1], q, k, spec, causal, scale)
     return dq
 
 
@@ -349,10 +362,10 @@ def bsa_dkv(q, k, v, do, lse, delta, spec: BlockMask, causal: bool,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _check(dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta, dk=dk, dv=dv),
            q, k, spec)
-    _, _, rows, rcounts = spec.lists(q.device)
+    kv_lists = spec.lists(q.device)[3:]
     _launch(KERNEL_NAMES[2], "bsa_dkv_launch",
             [t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)],
-            (rows, rcounts), rows.shape[1], q, k, spec, causal, scale)
+            kv_lists, kv_lists[0].shape[1], q, k, spec, causal, scale)
     return dk, dv
 
 

@@ -1,16 +1,19 @@
 // Tile steps shared by the flash attention kernels (flash_attention.cu)
 // and the block-sparse attention kernels (block_sparse_attention.cu).
 //
-// Both families walk 64-row q tiles against 64-row kv tiles (kv tiles
-// against 32- or 64-row q tiles in dK/dV); they differ only in which
-// tiles they walk: every tile up to the causal diagonal (flash) or the
-// tiles of a q block's compacted list of active kv blocks (block-sparse).
-// So the work on one pair of tiles lives here, once, as a step function
-// a kernel calls from its own loop:
+// Both families walk 64-row q tiles against 64-row kv tiles; they differ
+// only in which tiles they walk: every tile up to the causal diagonal
+// (flash) or the tiles of a q block's compacted list of active kv blocks
+// (block-sparse). So the work on one pair of tiles lives here, once, as a
+// step function a kernel calls from its own loop:
 //   fwd_tile / fwd_tile_mma   online softmax over one kv tile
-//   dq_tile  / dq_tile_mma    dq += ds . k over one kv tile
-//   dkv_tile / dkv_tile_mma   dv += p^T . do, dk += ds^T . q over one q tile
-// and the forward's epilogue (fwd_store / fwd_store_mma).
+//   dq_tile                   dq += ds . k over one kv tile
+//   dkv_tile                  dv += p^T . do, dk += ds^T . q over one q tile
+// and the forward's epilogue (fwd_store / fwd_store_mma). The fp32 steps
+// come in two halves: the scores over the head dim, and the update given
+// the scores (fwd_update, dq_update, dkv_update), which the wide-head-dim
+// kernels (wide_attention.cuh) call on scores they sum over 64-column
+// chunks. The bf16 backward steps on wgmma are in attention_wgmma.cuh.
 //
 // Masked scores are -inf. The running max is -inf-safe: while every
 // column a row has seen is masked, its max stays -inf and the step
@@ -20,15 +23,16 @@
 // is written as 0 and its lse as -inf, and the backward steps give it
 // p = 0 (every one of its scores is masked).
 //
-// Two instantiations of every step (the flash kernels use the fp32 ones
-// and wgmma kernels of their own for bf16; the block-sparse kernels both):
+// Two kinds of step:
 //   fp32  the FMA units: 256 threads as 16 x 16, a thread owning a 4 x 4
 //         block of the 64 x 64 score tile (rows 4*ty..4*ty+3, columns
-//         tx + 16*j) and a 4 x (D/16) block of the accumulators.
-//   bf16  tensor cores through mma.sync.m16n8k16 (fp32 accumulation), 4
-//         warps, each owning 16 rows of the block's own tile; tiles staged
-//         in shared memory as bf16 with a D + 8 pitch; p and ds re-packed
-//         from accumulator fragments straight into A operands.
+//         tx + 16*j) and a 4 x (D/16) block of the accumulators. Typed on
+//         the inputs' T: p and ds are rounded to T, as the reference does.
+//   bf16  the block-sparse forward on tensor cores through
+//         mma.sync.m16n8k16 (fp32 accumulation), 4 warps, each owning 16
+//         rows of the block's own tile; tiles staged in shared memory as
+//         bf16 with a D + 8 pitch; p re-packed from accumulator fragments
+//         straight into A operands.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -107,30 +111,34 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// 64 rows of a row-major [*, D] matrix into shared memory as fp32, row
-// stride `ld` (D or D + 1): dst[r * ld + d].
+// D columns of 64 rows of a row-major matrix (row pitch `pitch`, D by
+// default) into shared memory as fp32, row stride `ld` (D or D + 1):
+// dst[r * ld + d].
 template <typename T, int D>
 __device__ __forceinline__ void stage_rows(const T* __restrict__ src,
-                                           float* __restrict__ dst, int ld) {
+                                           float* __restrict__ dst, int ld,
+                                           int pitch = D) {
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int r = e / D, d = e % D;
-    dst[r * ld + d] = to_float<T>(src[(size_t)r * D + d]);
+    dst[r * ld + d] = to_float<T>(src[(size_t)r * pitch + d]);
   }
 }
 
-// 64 rows of a row-major [*, D] matrix into shared memory transposed, as
-// fp32: dst[d * kTile + r]. 16-byte loads; consecutive threads take
-// consecutive rows, so the transposed stores are conflict-free.
+// D columns of 64 rows of a row-major matrix (row pitch `pitch`, D by
+// default) into shared memory transposed, as fp32: dst[d * kTile + r].
+// 16-byte loads; consecutive threads take consecutive rows, so the
+// transposed stores are conflict-free.
 template <typename T, int D>
 __device__ __forceinline__ void stage_cols(const T* __restrict__ src,
-                                           float* __restrict__ dst) {
+                                           float* __restrict__ dst,
+                                           int pitch = D) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kChunks = D / kVec;
   for (int e = threadIdx.x; e < kTile * kChunks; e += kThreads) {
     const int r = e % kTile;
     const int c = (e / kTile) * kVec;
     const uint4 raw =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
+        *reinterpret_cast<const uint4*>(src + (size_t)r * pitch + c);
     const T* v = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int u = 0; u < kVec; ++u) dst[(c + u) * kTile + r] = to_float<T>(v[u]);
@@ -192,18 +200,18 @@ __device__ __forceinline__ void fwd_init(FwdAcc<D>& st) {
   }
 }
 
-// One kv tile (columns c0..c0+63, staged: ks [64][D + 1], vs [64][D])
-// against the q tile at q0 (qt [D][64], transposed); pt is [64][kLdP]
-// scratch for p.
+// The online softmax over one kv tile (columns c0..c0+63) of the q tile
+// at q0, given its scores s = q k^T (the thread's 4 x 4 block, unscaled):
+// acc += p v over vs [64][D] (D columns of v); pt is [64][kLdP] scratch
+// for p. Its barrier also publishes vs, staged since the last one.
 template <typename T, int D>
-__device__ __forceinline__ void fwd_tile(FwdAcc<D>& st, const float* qt,
-                                         const float* ks, const float* vs,
-                                         float* pt, int q0, int c0,
-                                         int causal, int offset, float scale,
-                                         const Dropout& drop, uint32_t key) {
+__device__ __forceinline__ void fwd_update(FwdAcc<D>& st, float (&s)[4][4],
+                                           const float* vs, float* pt,
+                                           int q0, int c0, int causal,
+                                           int offset, float scale,
+                                           const Dropout& drop,
+                                           uint32_t key) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float s[4][4] = {};
-  tile_fma<4>(s, qt, kTile, ks, 1, D + 1, D);
   float p[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -244,41 +252,53 @@ __device__ __forceinline__ void fwd_tile(FwdAcc<D>& st, const float* qt,
   tile_fma<D / 16>(st.acc, pt, kLdP, vs, D, 1, kTile);
 }
 
-// out = acc / l and lse = m + log(l) for the thread's rows; 0 and -inf
-// for a row that saw no unmasked column.
+// One kv tile (columns c0..c0+63, staged: ks [64][D + 1], vs [64][D])
+// against the q tile at q0 (qt [D][64], transposed); pt is [64][kLdP]
+// scratch for p.
+template <typename T, int D>
+__device__ __forceinline__ void fwd_tile(FwdAcc<D>& st, const float* qt,
+                                         const float* ks, const float* vs,
+                                         float* pt, int q0, int c0,
+                                         int causal, int offset, float scale,
+                                         const Dropout& drop, uint32_t key) {
+  float s[4][4] = {};
+  tile_fma<4>(s, qt, kTile, ks, 1, D + 1, D);
+  fwd_update<T, D>(st, s, vs, pt, q0, c0, causal, offset, scale, drop, key);
+}
+
+// out = acc / l and lse = m + log(l) for the thread's rows (out: D
+// columns of rows of pitch `pitch`, D by default; lse skipped when null);
+// 0 and -inf for a row that saw no unmasked column.
 template <typename T, int D>
 __device__ __forceinline__ void fwd_store(const FwdAcc<D>& st, T* out,
-                                          float* lse, int row0) {
+                                          float* lse, int row0,
+                                          int pitch = D) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + 4 * ty + i;
-    T* orow = out + (size_t)row * D;
+    T* orow = out + (size_t)row * pitch;
     const bool seen = st.l[i] > 0.f;
     const float inv = seen ? 1.f / st.l[i] : 0.f;
 #pragma unroll
     for (int c = 0; c < D / 16; ++c)
       orow[tx + 16 * c] = from_float<T>(st.acc[i][c] * inv);
-    if (tx == 0) lse[row] = seen ? st.m[i] + logf(st.l[i]) : -INFINITY;
+    if (tx == 0 && lse != nullptr)
+      lse[row] = seen ? st.m[i] + logf(st.l[i]) : -INFINITY;
   }
 }
 
-// dq += ds . k over one kv tile (ks, vs [64][D + 1]); qt, dot [D][64]
-// hold the q tile and its output gradient transposed; dst is [64][kLdP]
-// scratch for ds.
+// dq += ds . k over one kv tile, given its scores s = q k^T and dp =
+// do v^T (the thread's 4 x 4 blocks): ks [64][D + 1] holds D columns of
+// k; dst is [64][kLdP] scratch for ds. Its barrier also publishes ks,
+// staged since the last one.
 template <typename T, int D>
-__device__ __forceinline__ void dq_tile(float (&acc)[4][D / 16],
-                                        const float* qt, const float* dot,
-                                        const float* ks, const float* vs,
-                                        float* dst, const float (&lse_r)[4],
-                                        const float (&dl_r)[4], int q0,
-                                        int c0, int causal, int offset,
-                                        float scale, const Dropout& drop,
-                                        uint32_t key) {
+__device__ __forceinline__ void dq_update(
+    float (&acc)[4][D / 16], const float (&s)[4][4], const float (&dp)[4][4],
+    const float* ks, float* dst, const float (&lse_r)[4],
+    const float (&dl_r)[4], int q0, int c0, int causal, int offset,
+    float scale, const Dropout& drop, uint32_t key) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float s[4][4] = {}, dp[4][4] = {};
-  tile_fma<4>(s, qt, kTile, ks, 1, D + 1, D);
-  tile_fma<4>(dp, dot, kTile, vs, 1, D + 1, D);
   float ds[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -301,20 +321,40 @@ __device__ __forceinline__ void dq_tile(float (&acc)[4][D / 16],
   tile_fma<D / 16>(acc, dst, kLdP, ks, D + 1, 1, kTile);
 }
 
-// dv += p_drop^T . do and dk += ds^T . q over one q tile (qs, dos
-// [64][D + 1], lse_s and dl_s its 64 rows' lse and delta) for the kv tile
-// at c0 (kt, vt [D][64], transposed); xs, ys are [64][kLdP] scratch.
+// dq += ds . k over one kv tile (ks, vs [64][D + 1]); qt, dot [D][64]
+// hold the q tile and its output gradient transposed; dst is [64][kLdP]
+// scratch for ds.
 template <typename T, int D>
-__device__ __forceinline__ void dkv_tile(
-    float (&dk_acc)[4][D / 16], float (&dv_acc)[4][D / 16], const float* kt,
-    const float* vt, const float* qs, const float* dos, const float* lse_s,
-    const float* dl_s, float* xs, float* ys, int r0, int c0, int causal,
-    int offset, float scale, const Dropout& drop, uint32_t key) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  // transposed scores: rows are kv columns c, columns are q rows r
+__device__ __forceinline__ void dq_tile(float (&acc)[4][D / 16],
+                                        const float* qt, const float* dot,
+                                        const float* ks, const float* vs,
+                                        float* dst, const float (&lse_r)[4],
+                                        const float (&dl_r)[4], int q0,
+                                        int c0, int causal, int offset,
+                                        float scale, const Dropout& drop,
+                                        uint32_t key) {
   float s[4][4] = {}, dp[4][4] = {};
-  tile_fma<4>(s, kt, kTile, qs, 1, D + 1, D);
-  tile_fma<4>(dp, vt, kTile, dos, 1, D + 1, D);
+  tile_fma<4>(s, qt, kTile, ks, 1, D + 1, D);
+  tile_fma<4>(dp, dot, kTile, vs, 1, D + 1, D);
+  dq_update<T, D>(acc, s, dp, ks, dst, lse_r, dl_r, q0, c0, causal, offset,
+                  scale, drop, key);
+}
+
+// dv += p_drop^T . do and dk += ds^T . q over one q tile at r0 for the
+// kv tile at c0, given the transposed scores s = k q^T and dp = v do^T
+// (the thread's 4 x 4 blocks; rows are kv columns, columns q rows): qs,
+// dos [64][D + 1] hold D columns of q and do, lse_s and dl_s the q rows'
+// lse and delta (read before its barrier: published by the caller); xs,
+// ys are [64][kLdP] scratch. Its barrier also publishes qs and dos,
+// staged since the last one.
+template <typename T, int D>
+__device__ __forceinline__ void dkv_update(
+    float (&dk_acc)[4][D / 16], float (&dv_acc)[4][D / 16],
+    const float (&s)[4][4], const float (&dp)[4][4], const float* qs,
+    const float* dos, const float* lse_s, const float* dl_s, float* xs,
+    float* ys, int r0, int c0, int causal, int offset, float scale,
+    const Dropout& drop, uint32_t key) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float pd[4][4], ds[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -342,15 +382,33 @@ __device__ __forceinline__ void dkv_tile(
   tile_fma<D / 16>(dk_acc, ys, kLdP, qs, D + 1, 1, kTile);
 }
 
-// Store the thread's dk and dv rows of the kv tile starting at row0.
+// dv += p_drop^T . do and dk += ds^T . q over one q tile (qs, dos
+// [64][D + 1], lse_s and dl_s its 64 rows' lse and delta) for the kv tile
+// at c0 (kt, vt [D][64], transposed); xs, ys are [64][kLdP] scratch.
+template <typename T, int D>
+__device__ __forceinline__ void dkv_tile(
+    float (&dk_acc)[4][D / 16], float (&dv_acc)[4][D / 16], const float* kt,
+    const float* vt, const float* qs, const float* dos, const float* lse_s,
+    const float* dl_s, float* xs, float* ys, int r0, int c0, int causal,
+    int offset, float scale, const Dropout& drop, uint32_t key) {
+  float s[4][4] = {}, dp[4][4] = {};
+  tile_fma<4>(s, kt, kTile, qs, 1, D + 1, D);
+  tile_fma<4>(dp, vt, kTile, dos, 1, D + 1, D);
+  dkv_update<T, D>(dk_acc, dv_acc, s, dp, qs, dos, lse_s, dl_s, xs, ys, r0,
+                   c0, causal, offset, scale, drop, key);
+}
+
+// Store the thread's dk and dv rows of the kv tile starting at row0 (D
+// columns of rows of pitch `pitch`, D by default).
 template <typename T, int D>
 __device__ __forceinline__ void dkv_store(const float (&dk_acc)[4][D / 16],
                                           const float (&dv_acc)[4][D / 16],
-                                          T* dk, T* dv, size_t row0) {
+                                          T* dk, T* dv, size_t row0,
+                                          int pitch = D) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const size_t base = (row0 + 4 * ty + i) * D;
+    const size_t base = (row0 + 4 * ty + i) * pitch;
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) {
       dk[base + tx + 16 * c] = from_float<T>(dk_acc[i][c]);
@@ -367,10 +425,6 @@ __device__ __forceinline__ void dkv_store(const float (&dk_acc)[4][D / 16],
 
 constexpr int kWarpsMma = 4;
 constexpr int kThreadsMma = 32 * kWarpsMma;
-// dK/dV: a block owns a 64-row kv tile (16 rows per warp) and walks q
-// tiles of 32 rows, which keeps the transposed scores, dp and both
-// accumulators in registers.
-constexpr int kQTileKV = 32;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -607,76 +661,6 @@ __device__ __forceinline__ void fwd_store_mma(const FwdAccMma<D>& st,
           st.l[h] > 0.f ? st.m[h] + logf(st.l[h]) : -INFINITY;
 }
 
-// dq += ds . k over one kv tile for the warp's 16 rows (rows[h], with
-// their lse and delta) of the q tile qs and its output gradient dos.
-template <int D>
-__device__ __forceinline__ void dq_tile_mma(
-    float (&acc)[D / 8][4], const __nv_bfloat16* qs,
-    const __nv_bfloat16* dos, const __nv_bfloat16* ks,
-    const __nv_bfloat16* vs, const int (&rows)[2], const float (&lse_r)[2],
-    const float (&dl_r)[2], int c0, int causal, int offset, float scale,
-    const Dropout& drop, uint32_t key) {
-  const int warp = threadIdx.x / 32, tig = threadIdx.x % 4;
-  float s[kTile / 8][4] = {}, dp[kTile / 8][4] = {};
-  mma_abt<D, kTile / 8>(s, qs, warp * 16, ks);
-  mma_abt<D, kTile / 8>(dp, dos, warp * 16, vs);
-#pragma unroll
-  for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int h = e >> 1, col = c0 + j * 8 + 2 * tig + (e & 1);
-      const bool masked = causal && rows[h] + offset < col;
-      const float p = masked ? 0.f : expf(s[j][e] * scale - lse_r[h]);
-      float dpv = dp[j][e];
-      if (drop.on) {
-        const uint32_t bits = dropout_bits(key, rows[h], col);
-        dpv = bits >= drop.threshold ? dpv / drop.keep_div : 0.f;
-      }
-      s[j][e] = p * (dpv - dl_r[h]) * scale;  // ds
-    }
-  uint32_t da[kTile / 16][4];
-  to_a_frags<kTile / 8>(da, s);
-  mma_px<D, kTile / 16>(acc, da, ks);
-}
-
-// dv += p_drop^T . do and dk += ds^T . q over one 32-row q tile (qs, dos,
-// lse_s, dl_s) for the warp's 16 kv rows cols[h] of the kv tile ks, vs.
-template <int D>
-__device__ __forceinline__ void dkv_tile_mma(
-    float (&dk_acc)[D / 8][4], float (&dv_acc)[D / 8][4],
-    const __nv_bfloat16* ks, const __nv_bfloat16* vs,
-    const __nv_bfloat16* qs, const __nv_bfloat16* dos, const float* lse_s,
-    const float* dl_s, const int (&cols)[2], int r0, int causal, int offset,
-    float scale, const Dropout& drop, uint32_t key) {
-  const int warp = threadIdx.x / 32, tig = threadIdx.x % 4;
-  // transposed scores: rows are this warp's kv columns, columns q rows
-  float st[kQTileKV / 8][4] = {}, dpt[kQTileKV / 8][4] = {};
-  mma_abt<D, kQTileKV / 8>(st, ks, warp * 16, qs);
-  mma_abt<D, kQTileKV / 8>(dpt, vs, warp * 16, dos);
-#pragma unroll
-  for (int j = 0; j < kQTileKV / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int rl = j * 8 + 2 * tig + (e & 1), row = r0 + rl;
-      const int col = cols[e >> 1];
-      const bool masked = causal && row + offset < col;
-      const float p = masked ? 0.f : expf(st[j][e] * scale - lse_s[rl]);
-      float p_drop = p, dpv = dpt[j][e];
-      if (drop.on) {
-        const bool keep = dropout_bits(key, row, col) >= drop.threshold;
-        p_drop = keep ? p * drop.keep_inv : 0.f;
-        dpv = keep ? dpv * drop.keep_inv : 0.f;
-      }
-      dpt[j][e] = p * (dpv - dl_s[rl]) * scale;  // ds^T
-      st[j][e] = p_drop;
-    }
-  uint32_t pa[kQTileKV / 16][4], da[kQTileKV / 16][4];
-  to_a_frags<kQTileKV / 8>(pa, st);
-  to_a_frags<kQTileKV / 8>(da, dpt);
-  mma_px<D, kQTileKV / 16>(dv_acc, pa, dos);
-  mma_px<D, kQTileKV / 16>(dk_acc, da, qs);
-}
-
 // ---------------------------------------------------------------- launch
 
 template <typename Kernel>
@@ -707,15 +691,4 @@ template <int D>
 constexpr size_t fwd_smem_mma() {
   return (size_t)3 * kTile * (D + 8) * sizeof(__nv_bfloat16);
 }
-template <int D>
-constexpr size_t dq_smem_mma() {
-  return (size_t)4 * kTile * (D + 8) * sizeof(__nv_bfloat16);
-}
-template <int D>
-constexpr size_t dkv_smem_mma() {
-  return (size_t)(2 * kTile + 2 * kQTileKV) * (D + 8) *
-             sizeof(__nv_bfloat16) +
-         2 * kQTileKV * sizeof(float);
-}
-
 }  // namespace

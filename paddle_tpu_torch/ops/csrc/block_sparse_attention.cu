@@ -1,28 +1,31 @@
 // Block-sparse attention for Hopper (sm_90a), written by hand: forward, dQ
-// and dK/dV on [BH, S, D] tensors (D padded to 64 or 128 by the wrapper),
-// over compacted lists of active blocks.
+// and dK/dV on [BH, S, D] tensors (D padded to a multiple of 64 up to 512
+// by the wrapper), over compacted lists of active blocks.
 //
 // Replaces the three Pallas TPU kernels of
 // paddle_tpu/ops/pallas/block_sparse_attention.py:
-//   bsa_fwd_[mma_]kernel  <- _bsa_fwd_kernel  (:92, pallas_call :146)
-//   bsa_dq_[mma_]kernel   <- _bsa_dq_kernel   (:182, pallas_call :271)
-//   bsa_dkv_[mma_]kernel  <- _bsa_dkv_kernel  (:216, pallas_call :310)
+//   bsa_fwd_[mma_]kernel    <- _bsa_fwd_kernel  (:92, pallas_call :146)
+//   bsa_dq_[wgmma_]kernel   <- _bsa_dq_kernel   (:182, pallas_call :271)
+//   bsa_dkv_[wgmma_]kernel  <- _bsa_dkv_kernel  (:216, pallas_call :310)
+// and, at D 192..512, the wide kernels of wide_attention.cuh.
 // The TPU grid is (BH, n blocks, list slot): each step's BlockSpec index
 // map reads the list, so inactive blocks are never copied from HBM, and
 // the sums ride in VMEM scratch from slot to slot. Here one thread block
-// owns a 64-row tile of its side (q rows for the forward and dQ, kv rows
-// for dK/dV) and walks, inside one loop, the list of the logical block
-// that tile lies in:
+// owns a tile of its side (q rows for the forward and dQ, kv rows for
+// dK/dV; 64 rows, 128 in the wgmma kernels) and walks, inside one loop,
+// the list of the logical block that tile lies in:
 //   forward, dQ  cols[i, :counts[i]]   (q block i -> its active kv blocks)
 //   dK/dV        rows[j, :rcounts[j]]  (kv block j -> the q blocks that
 //                                       attend it, the transposed lists)
 // A logical block (128..512 rows, blk_q and blk_k may differ) spans
 // several 64-row tiles; each is staged and handed to the same tile step
-// as the flash kernels' (attention_tiles.cuh), which is where the online
-// softmax, the recomputed p and the dq / dk, dv products live. Inactive
-// blocks cost neither FLOPs nor bytes. dK/dV keeps the reference's split
-// from dQ: no atomics, a deterministic result, and a kv block that no q
-// block attends (rcounts[j] == 0) walks nothing and writes exact zeros.
+// as the flash kernels' (attention_tiles.cuh, attention_wgmma.cuh), which
+// is where the online softmax, the recomputed p and the dq / dk, dv
+// products live. Inactive blocks cost neither FLOPs nor bytes. dK/dV
+// keeps the reference's split from dQ: no atomics, a deterministic
+// result, and a kv block that no q block attends (rcounts[j] == 0) walks
+// nothing and writes exact zeros. A list's slots past its count repeat
+// its last block (BlockMask's padding); no walk reads them.
 //
 // Causal masking keeps row + (sk - sq) >= col inside the active blocks;
 // tiles wholly above a tile's diagonal are skipped. With blk_q > blk_k a
@@ -36,24 +39,14 @@
 // D=128, bf16, 227 active 128 x 128 block pairs of 1024 per head) that
 // is 60.9 GFLOP and 135 MB: 0.062 ms by operations against 0.040 ms by
 // bytes, so all three kernels (dQ 6 D, dK/dV 8 D FLOP a pair) are bound
-// by the tensor cores. Right and simple first: mma.sync (bf16) and the
-// FMA units (fp32) with synchronous staging, as the flash kernels; wgmma
-// and TMA come later.
+// by the tensor cores. Instantiations: bf16 dQ and dK/dV on wgmma fed by
+// TMA rings (the flash backward's design, below); the bf16 forward on
+// mma.sync with synchronous staging; fp32 on the FMA units.
 
-#include "attention_tiles.cuh"
+#include "attention_wgmma.cuh"
+#include "wide_attention.cuh"
 
 namespace {
-
-// For a tile of `own` rows starting at row0: its logical block is
-// row0 / blk_own, whose active blocks on the other side are
-// idx[blk * width + a] for a < count[blk], each blk_other rows long.
-struct BlockList {
-  const int* idx;
-  const int* count;
-  int width;
-  int blk_own;
-  int blk_other;
-};
 
 // ---------------------------------------------------------------- forward
 
@@ -223,103 +216,279 @@ bsa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   fwd_store_mma<D>(st, out + (size_t)bh * sq * D, lse + (size_t)bh * sq, q0);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreadsMma)
-bsa_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dq, BlockList L, int sq, int sk,
-                  int causal, float scale) {
-  constexpr int kLd = D + 8;
-  const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) >> 2;
-  const int offset = sk - sq;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + kTile * kLd;
-  __nv_bfloat16* ks = dos + kTile * kLd;
-  __nv_bfloat16* vs = ks + kTile * kLd;
+// ------------------------------------------ bf16: wgmma fed by TMA rings
+//
+// The backward's bf16 kernels run the flash dQ and dK/dV kernels' design
+// (flash_attention.cu fa_dq_wgmma_kernel, fa_dkv_wgmma_kernel, their tile
+// steps shared through attention_wgmma.cuh): a block owns 128 rows of its
+// side, two consumer warpgroups of 64, 256 threads; one thread keeps a
+// ring of the other side's 64-row tiles in flight by TMA, refilling a
+// stage once both warpgroups have released it. Only the walk differs:
+// step i of the ring is the i-th 64-row tile of the listed blocks, in
+// list order, a listed block of blk_other rows being blk_other / 64
+// tiles. Block sizes are 128-multiples, so a block's 128 rows lie in one
+// logical block, and BlockMask's lists ascend: under causal the tiles
+// wholly above the block's diagonal are a prefix (dK/dV) or a suffix (dQ)
+// of the walk, which is cut to the rest before anything is loaded.
+//
+// Launch order: one block an SM, and a list may be far longer than the
+// mean (BigBird's two global kv blocks are attended by every q block: 32
+// entries against a mean of about 7 at S = 4096), so a heavy block that
+// starts last sets the tail. L.order lists the own side's logical blocks
+// by list length, longest first (BlockMask computes it once a pattern);
+// the grid's y walks it, every batch-head's blocks of one logical block
+// side by side on x. No atomics: dK/dV keeps the reference's split from
+// dQ and its result is deterministic.
 
-  stage_bf16<D>(q + ((size_t)bh * sq + q0) * D, qs, kTile);
-  stage_bf16<D>(dout + ((size_t)bh * sq + q0) * D, dos, kTile);
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse_r[2], dl_r[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    lse_r[h] = lse[(size_t)bh * sq + rows[h]];
-    dl_r[h] = delta[(size_t)bh * sq + rows[h]];
-  }
-  float acc[D / 8][4] = {};
-  const Dropout none{};
-  const int blk = q0 / L.blk_own, n = L.count[blk];
-  for (int a = 0; a < n; ++a) {
-    const int k0 = L.idx[blk * L.width + a] * L.blk_other;
-    for (int c0 = k0; c0 < k0 + L.blk_other; c0 += kTile) {
-      if (causal && c0 > q0 + kTile - 1 + offset) break;
-      __syncthreads();
-      stage_bf16<D>(k + ((size_t)bh * sk + c0) * D, ks, kTile);
-      stage_bf16<D>(v + ((size_t)bh * sk + c0) * D, vs, kTile);
-      __syncthreads();
-      dq_tile_mma<D>(acc, qs, dos, ks, vs, rows, lse_r, dl_r, c0, causal,
-                     offset, scale, none, 0u);
-    }
-  }
-  const float one[2] = {1.f, 1.f};
-  store_rows_bf16<D>(dq + ((size_t)bh * sq + q0 + warp * 16) * D, acc, one);
+// The heaviest-first logical block a thread block works on, and its
+// first row: blockIdx.y walks L.order, L.blk_own / kWgBlock thread blocks
+// a logical block.
+__device__ __forceinline__ int wg_block_row(const BlockList& L, int& blk) {
+  const int per = L.blk_own / kWgBlock;
+  blk = L.order[blockIdx.y / per];
+  return blk * L.blk_own + (blockIdx.y % per) * kWgBlock;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsMma)
-bsa_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dk,
-                   __nv_bfloat16* __restrict__ dv, BlockList L, int sq,
-                   int sk, int causal, float scale) {
-  constexpr int kLd = D + 8;
-  const int bh = blockIdx.y, c0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) >> 2;
-  const int offset = sk - sq;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kTile * kLd;
-  __nv_bfloat16* qs = vs + kTile * kLd;
-  __nv_bfloat16* dos = qs + kQTileKV * kLd;
-  float* lse_s = reinterpret_cast<float*>(dos + kQTileKV * kLd);
-  float* dl_s = lse_s + kQTileKV;
+__global__ void __launch_bounds__(kConsumerThreads, 1)
+bsa_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_dq,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, BlockList L, int sq,
+                    int sk, int causal, float scale) {
+  constexpr int kQBytes = tile_bytes<D>(kWgBlock);
+  constexpr int kKvBytes = tile_bytes<D>(kTile);
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* qs = align_1024(wg_smem);
+  unsigned char* dos = qs + kQBytes;
+  unsigned char* ks = dos + kQBytes;              // [kDqStages] K tiles
+  unsigned char* vs = ks + kDqStages * kKvBytes;  // [kDqStages] V tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kDqStages * kKvBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kDqStages;
 
-  stage_bf16<D>(k + ((size_t)bh * sk + c0) * D, ks, kTile);
-  stage_bf16<D>(v + ((size_t)bh * sk + c0) * D, vs, kTile);
-  const int cols[2] = {c0 + warp * 16 + g, c0 + warp * 16 + g + 8};
-  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
-  const Dropout none{};
-  const int blk = c0 / L.blk_own, n = L.count[blk];
-  for (int b = 0; b < n; ++b) {
-    const int q_start = L.idx[blk * L.width + b] * L.blk_other;
-    for (int r0 = q_start; r0 < q_start + L.blk_other; r0 += kQTileKV) {
-      if (causal && r0 + kQTileKV - 1 + offset < c0) continue;
-      __syncthreads();
-      stage_bf16<D>(q + ((size_t)bh * sq + r0) * D, qs, kQTileKV);
-      stage_bf16<D>(dout + ((size_t)bh * sq + r0) * D, dos, kQTileKV);
-      if (threadIdx.x < kQTileKV) {
-        lse_s[threadIdx.x] = lse[(size_t)bh * sq + r0 + threadIdx.x];
-        dl_s[threadIdx.x] = delta[(size_t)bh * sq + r0 + threadIdx.x];
-      }
-      __syncthreads();
-      dkv_tile_mma<D>(dk_acc, dv_acc, ks, vs, qs, dos, lse_s, dl_s, cols, r0,
-                      causal, offset, scale, none, 0u);
-    }
+  const int bh = blockIdx.x;
+  int blk;
+  const int q0 = wg_block_row(L, blk);
+  const int offset = sk - sq;
+  const int* list = L.idx + blk * L.width;
+  const int n = L.count[blk], per_entry = L.blk_other / kTile;
+  // kv tiles wholly above the block's diagonal (past its last row's last
+  // column) are never loaded: a suffix of the ascending walk
+  int n_t = n * per_entry;
+  if (causal) {
+    const int last_col = q0 + kWgBlock - 1 + offset;
+    n_t = 0;
+    for (int a = 0; a < n && list[a] * L.blk_other <= last_col; ++a)
+      n_t += min(per_entry, (last_col - list[a] * L.blk_other) / kTile + 1);
   }
+  const auto col_of = [&](int t) {
+    return list[t / per_entry] * L.blk_other + (t % per_entry) * kTile;
+  };
+  // kv tile t of the walk into its stage: K and V
+  const auto load = [&](int t) {
+    const int s = t % kDqStages, c0 = col_of(t);
+    mbar_expect_tx(&full[s], 2 * kKvBytes);
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb) {
+      tma_load_3d(ks + s * kKvBytes + cb * kTile * 128, &tm_k, &full[s],
+                  cb * 64, c0, bh);
+      tma_load_3d(vs + s * kKvBytes + cb * kTile * 128, &tm_v, &full[s],
+                  cb * 64, c0, bh);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_full, 2 * kQBytes);
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb) {
+      tma_load_3d(qs + cb * kWgBlock * 128, &tm_q, q_full, cb * 64, q0, bh);
+      tma_load_3d(dos + cb * kWgBlock * 128, &tm_do, q_full, cb * 64, q0,
+                  bh);
+    }
+    for (int t = 0; t < min(n_t, kDqStages); ++t) load(t);
+  }
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int g = (threadIdx.x % 32) / 4;
+  const int row0 = q0 + wg * kWgRows;
+  const int rows[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
+  const uint32_t q_base = smem_u32(qs) + wg * kWgRows * 128;
+  const uint32_t do_base = smem_u32(dos) + wg * kWgRows * 128;
+  const Dropout none{};
+  float lse_l2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lse_l2[h] = lse[(size_t)bh * sq + rows[h]] * kLog2e;
+    dl[h] = delta[(size_t)bh * sq + rows[h]];
+  }
+  float acc[D / 8][4] = {};
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_t; ++t) {
+    const int s = t % kDqStages, c0 = col_of(t);
+    if (threadIdx.x == 0 && t > 0 && t - 1 + kDqStages < n_t) {
+      mbar_wait(&empty[(t - 1) % kDqStages], ((t - 1) / kDqStages) & 1);
+      load(t - 1 + kDqStages);
+    }
+    mbar_wait(&full[s], (t / kDqStages) & 1);
+    if (!(causal && c0 > row0 + kWgRows - 1 + offset))
+      dq_tile_wgmma<D>(acc, q_base, do_base, smem_u32(ks + s * kKvBytes),
+                       smem_u32(vs + s * kKvBytes), rows, lse_l2, dl, c0,
+                       causal && c0 + kTile - 1 > row0 + offset, offset,
+                       scale, none, 0u);
+    mbar_arrive(&empty[s]);
+  }
+  // dQ through the warpgroup's rows of the Q tile, which it no longer
+  // reads, and one TMA store (zeros for rows that saw no column)
   const float one[2] = {1.f, 1.f};
-  const size_t base = ((size_t)bh * sk + c0 + warp * 16) * D;
-  store_rows_bf16<D>(dk + base, dk_acc, one);
-  store_rows_bf16<D>(dv + base, dv_acc, one);
+  stage_acc_bf16<D>(qs, kWgBlock, wg * kWgRows, acc, one);
+  fence_async_shared();
+  named_barrier(1 + wg, 128);
+  if (threadIdx.x % 128 == 0) {
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb)
+      tma_store_3d(&tm_dq, qs + (cb * kWgBlock + wg * kWgRows) * 128,
+                   cb * 64, row0, bh);
+    tma_store_drain();
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kConsumerThreads, 1)
+bsa_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_dk,
+                     const __grid_constant__ CUtensorMap tm_dv,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, BlockList L, int sq,
+                     int sk, int causal, float scale) {
+  constexpr int kKvBytes = tile_bytes<D>(kWgBlock);
+  constexpr int kQBytes = tile_bytes<D>(kTile);
+  constexpr int kRowBytes = kTile * 4;
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* ks = align_1024(wg_smem);
+  unsigned char* vs = ks + kKvBytes;
+  unsigned char* qs = vs + kKvBytes;               // [kDkvStages] q tiles
+  unsigned char* dos = qs + kDkvStages * kQBytes;  // [kDkvStages] dO tiles
+  float* lse_s = reinterpret_cast<float*>(dos + kDkvStages * kQBytes);
+  float* dl_s = lse_s + kDkvStages * kTile;        // [kDkvStages][64] each
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(dl_s + kDkvStages * kTile);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kDkvStages;
+
+  const int bh = blockIdx.x;
+  int blk;
+  const int c0 = wg_block_row(L, blk);
+  const int offset = sk - sq;
+  const int* list = L.idx + blk * L.width;
+  const int n = L.count[blk], per_entry = L.blk_other / kTile;
+  // q tiles wholly above the block's diagonal (r0 + 63 + offset < c0) see
+  // none of it and are never loaded: a prefix of the ascending walk
+  int first = 0;
+  if (causal)
+    for (int b = 0; b < n; ++b) {
+      const int skip = min(per_entry,
+                           max(c0 - offset - list[b] * L.blk_other, 0) /
+                               kTile);
+      first += skip;
+      if (skip < per_entry) break;
+    }
+  const int n_t = n * per_entry - first;
+  const auto row_of = [&](int i) {
+    const int t = first + i;
+    return list[t / per_entry] * L.blk_other + (t % per_entry) * kTile;
+  };
+  // step i of the walk into its stage: Q, dO, lse and delta
+  const auto load = [&](int i) {
+    const int s = i % kDkvStages, r0 = row_of(i);
+    mbar_expect_tx(&full[s], 2 * kQBytes + 2 * kRowBytes);
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb) {
+      tma_load_3d(qs + s * kQBytes + cb * kTile * 128, &tm_q, &full[s],
+                  cb * 64, r0, bh);
+      tma_load_3d(dos + s * kQBytes + cb * kTile * 128, &tm_do, &full[s],
+                  cb * 64, r0, bh);
+    }
+    bulk_load(lse_s + s * kTile, lse + (size_t)bh * sq + r0, kRowBytes,
+              &full[s]);
+    bulk_load(dl_s + s * kTile, delta + (size_t)bh * sq + r0, kRowBytes,
+              &full[s]);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(kv_full, 2 * kKvBytes);
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb) {
+      tma_load_3d(ks + cb * kWgBlock * 128, &tm_k, kv_full, cb * 64, c0, bh);
+      tma_load_3d(vs + cb * kWgBlock * 128, &tm_v, kv_full, cb * 64, c0, bh);
+    }
+    for (int i = 0; i < min(n_t, kDkvStages); ++i) load(i);
+  }
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int g = (threadIdx.x % 32) / 4;
+  const int col0 = c0 + wg * kWgRows;
+  const int cols[2] = {col0 + warp * 16 + g, col0 + warp * 16 + g + 8};
+  const uint32_t k_base = smem_u32(ks) + wg * kWgRows * 128;
+  const uint32_t v_base = smem_u32(vs) + wg * kWgRows * 128;
+  const Dropout none{};
+  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+  mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_t; ++i) {
+    const int s = i % kDkvStages, r0 = row_of(i);
+    if (threadIdx.x == 0 && i > 0 && i - 1 + kDkvStages < n_t) {
+      mbar_wait(&empty[(i - 1) % kDkvStages], ((i - 1) / kDkvStages) & 1);
+      load(i - 1 + kDkvStages);
+    }
+    mbar_wait(&full[s], (i / kDkvStages) & 1);
+    if (!(causal && r0 + kTile - 1 + offset < col0))
+      dkv_tile_wgmma<D>(dk_acc, dv_acc, k_base, v_base,
+                        smem_u32(qs + s * kQBytes), smem_u32(dos + s * kQBytes),
+                        lse_s + s * kTile, dl_s + s * kTile, cols, r0,
+                        causal && r0 + offset < col0 + kWgRows - 1, offset,
+                        scale, none, 0u);
+    mbar_arrive(&empty[s]);
+  }
+  // dK and dV through the warpgroup's rows of the K and V tiles, which it
+  // no longer reads, and TMA stores (exact zeros for a kv block nothing
+  // attends: its walk is empty)
+  const float one[2] = {1.f, 1.f};
+  stage_acc_bf16<D>(ks, kWgBlock, wg * kWgRows, dk_acc, one);
+  stage_acc_bf16<D>(vs, kWgBlock, wg * kWgRows, dv_acc, one);
+  fence_async_shared();
+  named_barrier(1 + wg, 128);
+  if (threadIdx.x % 128 == 0) {
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb) {
+      const int at = (cb * kWgBlock + wg * kWgRows) * 128;
+      tma_store_3d(&tm_dk, ks + at, cb * 64, col0, bh);
+      tma_store_3d(&tm_dv, vs + at, cb * 64, col0, bh);
+    }
+    tma_store_drain();
+  }
 }
 
 // ---------------------------------------------------------------- launch
@@ -387,78 +556,95 @@ cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
-                          const void* dout, const void* lse,
-                          const void* delta, void* dq, BlockList L, int bh,
-                          int sq, int sk, int causal, float scale,
-                          cudaStream_t st) {
-  auto kernel = bsa_dq_mma_kernel<D>;
-  cudaError_t err = set_smem(kernel, dq_smem_mma<D>());
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(sq / kTile, bh), kThreadsMma, dq_smem_mma<D>(), st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), L, sq, sk, causal, scale);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
-                           const void* dout, const void* lse,
-                           const void* delta, void* dk, void* dv,
-                           BlockList L, int bh, int sq, int sk, int causal,
-                           float scale, cudaStream_t st) {
-  auto kernel = bsa_dkv_mma_kernel<D>;
-  cudaError_t err = set_smem(kernel, dkv_smem_mma<D>());
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(sk / kTile, bh), kThreadsMma, dkv_smem_mma<D>(), st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), L,
-      sq, sk, causal, scale);
-  return cudaGetLastError();
-}
-
 // Block sizes must be whole 64-row tiles and tile both sequences; the
 // lists must have at least one slot.
-bool bad_geometry(int bh, int sq, int sk, int blk_q, int blk_k, int width) {
-  return bh < 1 || bh > 65535 || blk_q < kTile || blk_k < kTile ||
-         blk_q % kTile != 0 || blk_k % kTile != 0 || sq < blk_q ||
-         sk < blk_k || sq % blk_q != 0 || sk % blk_k != 0 || width < 1;
+template <int D>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, BlockList L, int bh,
+                            int sq, int sk, int causal, float scale,
+                            cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  cudaError_t err = bf16_map(&tq, q, bh, sq, D, kWgBlock);
+  if (err == cudaSuccess) err = bf16_map(&tk, k, bh, sk, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tv, v, bh, sk, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tdo, dout, bh, sq, D, kWgBlock);
+  if (err == cudaSuccess) err = bf16_map(&tdq, dq, bh, sq, D, kWgRows);
+  if (err != cudaSuccess) return err;
+  auto kernel = bsa_dq_wgmma_kernel<D>;
+  err = set_smem(kernel, dq_wgmma_smem<D>());
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(bh, sq / kWgBlock), kConsumerThreads, dq_wgmma_smem<D>(),
+           st>>>(tq, tk, tv, tdo, tdq, static_cast<const float*>(lse),
+                 static_cast<const float*>(delta), L, sq, sk, causal, scale);
+  return cudaGetLastError();
 }
 
-BlockList make_list(const void* idx, const void* count, int width,
-                    int blk_own, int blk_other) {
-  BlockList L;
-  L.idx = static_cast<const int*>(idx);
-  L.count = static_cast<const int*>(count);
-  L.width = width;
-  L.blk_own = blk_own;
-  L.blk_other = blk_other;
-  return L;
+template <int D>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv,
+                             BlockList L, int bh, int sq, int sk, int causal,
+                             float scale, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv;
+  cudaError_t err = bf16_map(&tq, q, bh, sq, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tk, k, bh, sk, D, kWgBlock);
+  if (err == cudaSuccess) err = bf16_map(&tv, v, bh, sk, D, kWgBlock);
+  if (err == cudaSuccess) err = bf16_map(&tdo, dout, bh, sq, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tdk, dk, bh, sk, D, kWgRows);
+  if (err == cudaSuccess) err = bf16_map(&tdv, dv, bh, sk, D, kWgRows);
+  if (err != cudaSuccess) return err;
+  auto kernel = bsa_dkv_wgmma_kernel<D>;
+  err = set_smem(kernel, dkv_wgmma_smem<D>());
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(bh, sk / kWgBlock), kConsumerThreads, dkv_wgmma_smem<D>(),
+           st>>>(tq, tk, tv, tdo, tdk, tdv, static_cast<const float*>(lse),
+                 static_cast<const float*>(delta), L, sq, sk, causal, scale);
+  return cudaGetLastError();
+}
+
+// Block sizes must be 128-multiples (whole 128-row blocks of the wgmma
+// kernels, as BlockMask requires) that tile both sequences; the lists
+// must have at least one slot.
+bool bad_geometry(int bh, int sq, int sk, int blk_q, int blk_k, int width) {
+  return bh < 1 || bh > 65535 || blk_q < kWgBlock || blk_k < kWgBlock ||
+         blk_q % kWgBlock != 0 || blk_k % kWgBlock != 0 || sq % blk_q != 0 ||
+         sk % blk_k != 0 || width < 1;
+}
+
+BlockList make_list(const void* idx, const void* count, const void* order,
+                    int width, int blk_own, int blk_other) {
+  return BlockList{static_cast<const int*>(idx),
+                   static_cast<const int*>(count),
+                   static_cast<const int*>(order), width, blk_own, blk_other};
 }
 
 }  // namespace
 
 // Dispatch on (dtype, padded head dim): dtype 0 = float32 runs the FMA
-// kernels, 1 = bfloat16 the tensor-core kernels; head_dim 64 or 128.
-// Everything else is refused with cudaErrorInvalidValue before any launch.
-#define BSA_DISPATCH(FN, ...)                                                 \
-  do {                                                                        \
-    if (dtype == 0 && head_dim == 64) return (int)FN<float, 64>(__VA_ARGS__); \
-    if (dtype == 0 && head_dim == 128)                                        \
-      return (int)FN<float, 128>(__VA_ARGS__);                                \
-    if (dtype == 1 && head_dim == 64) return (int)FN##_mma<64>(__VA_ARGS__);  \
-    if (dtype == 1 && head_dim == 128)                                        \
-      return (int)FN##_mma<128>(__VA_ARGS__);                                 \
-    return (int)cudaErrorInvalidValue;                                        \
+// kernels (FP32), 1 = bfloat16 the tensor-core kernels (BF16), at
+// head_dim 64 or 128; head_dim 192..512 (multiples of 64) runs the wide
+// kernels (WIDE, wide_attention.cuh) in either dtype. The arguments are
+// the kernels' up to sq, sk; causal, scale and the stream follow (with
+// head_dim before them for WIDE). Everything else is refused with
+// cudaErrorInvalidValue before any launch.
+#define BSA_DISPATCH(FP32, BF16, WIDE, ...)                                 \
+  do {                                                                      \
+    if (dtype == 0 && head_dim == 64)                                       \
+      return (int)FP32<float, 64>(__VA_ARGS__, causal, scale, st);          \
+    if (dtype == 0 && head_dim == 128)                                      \
+      return (int)FP32<float, 128>(__VA_ARGS__, causal, scale, st);         \
+    if (dtype == 1 && head_dim == 64)                                       \
+      return (int)BF16<64>(__VA_ARGS__, causal, scale, st);                 \
+    if (dtype == 1 && head_dim == 128)                                      \
+      return (int)BF16<128>(__VA_ARGS__, causal, scale, st);                \
+    if (wide_head_dim(head_dim) && dtype == 0)                              \
+      return (int)WIDE<float>(__VA_ARGS__, head_dim, causal, scale,         \
+                              Dropout{}, st);                               \
+    if (wide_head_dim(head_dim) && dtype == 1)                              \
+      return (int)WIDE<__nv_bfloat16>(__VA_ARGS__, head_dim, causal, scale, \
+                                      Dropout{}, st);                       \
+    return (int)cudaErrorInvalidValue;                                      \
   } while (0)
 
 extern "C" {
@@ -466,7 +652,8 @@ extern "C" {
 // Each returns a cudaError_t; nonzero means the kernel did not launch.
 // cols [sq / blk_q, a_max] and counts [sq / blk_q] (int32) are the q-major
 // lists; rows [sk / blk_k, b_max] and rcounts [sk / blk_k] the kv-major
-// ones.
+// ones; order_q [sq / blk_q] and order_kv [sk / blk_k] list the q and kv
+// blocks by list length, longest first (the wgmma kernels' launch order).
 int bsa_fwd_launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, const void* cols, const void* counts,
                    int a_max, int bh, int sq, int sk, int head_dim,
@@ -474,37 +661,40 @@ int bsa_fwd_launch(const void* q, const void* k, const void* v, void* out,
                    void* stream) {
   if (bad_geometry(bh, sq, sk, blk_q, blk_k, a_max))
     return (int)cudaErrorInvalidValue;
-  const BlockList L = make_list(cols, counts, a_max, blk_q, blk_k);
+  const BlockList L =
+      make_list(cols, counts, nullptr, a_max, blk_q, blk_k);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  BSA_DISPATCH(launch_fwd, q, k, v, out, lse, L, bh, sq, sk, causal, scale,
-               st);
+  BSA_DISPATCH(launch_fwd, launch_fwd_mma, launch_wide_fwd, q, k, v, out,
+               lse, L, bh, sq, sk);
 }
 
 int bsa_dq_launch(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
-                  void* dq, const void* cols, const void* counts, int a_max,
-                  int bh, int sq, int sk, int head_dim, int blk_q, int blk_k,
-                  int causal, float scale, int dtype, void* stream) {
+                  void* dq, const void* cols, const void* counts,
+                  const void* order_q, int a_max, int bh, int sq, int sk,
+                  int head_dim, int blk_q, int blk_k, int causal,
+                  float scale, int dtype, void* stream) {
   if (bad_geometry(bh, sq, sk, blk_q, blk_k, a_max))
     return (int)cudaErrorInvalidValue;
-  const BlockList L = make_list(cols, counts, a_max, blk_q, blk_k);
+  const BlockList L = make_list(cols, counts, order_q, a_max, blk_q, blk_k);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  BSA_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, L, bh, sq, sk,
-               causal, scale, st);
+  BSA_DISPATCH(launch_dq, launch_dq_wgmma, launch_wide_dq, q, k, v, dout,
+               lse, delta, dq, L, bh, sq, sk);
 }
 
 int bsa_dkv_launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dk, void* dv, const void* rows, const void* rcounts,
-                   int b_max, int bh, int sq, int sk, int head_dim,
-                   int blk_q, int blk_k, int causal, float scale, int dtype,
-                   void* stream) {
+                   const void* order_kv, int b_max, int bh, int sq, int sk,
+                   int head_dim, int blk_q, int blk_k, int causal,
+                   float scale, int dtype, void* stream) {
   if (bad_geometry(bh, sq, sk, blk_q, blk_k, b_max))
     return (int)cudaErrorInvalidValue;
-  const BlockList L = make_list(rows, rcounts, b_max, blk_k, blk_q);
+  const BlockList L =
+      make_list(rows, rcounts, order_kv, b_max, blk_k, blk_q);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  BSA_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, L, bh, sq, sk,
-               causal, scale, st);
+  BSA_DISPATCH(launch_dkv, launch_dkv_wgmma, launch_wide_dkv, q, k, v, dout,
+               lse, delta, dk, dv, L, bh, sq, sk);
 }
 
 const char* bsa_error_string(int code) {

@@ -1,5 +1,6 @@
 // Flash attention for Hopper (sm_90a), written by hand: forward, dQ and
-// dK/dV, on [BH, S, D] tensors (D padded to 64 or 128 by the wrapper).
+// dK/dV, on [BH, S, D] tensors (D padded to a multiple of 64 up to 512 by
+// the wrapper; D 192..512 run the wide kernels of wide_attention.cuh).
 //
 // Replaces the three Pallas TPU kernels of
 // paddle_tpu/ops/pallas/flash_attention.py:
@@ -57,10 +58,11 @@
 //         operand is read as scalars at a stride of 1 or an odd stride
 //         (D + 1).
 // The FMA tile steps (and the helpers above them) live in
-// attention_tiles.cuh, shared with the block-sparse kernels.
+// attention_tiles.cuh, the bf16 backward's wgmma tile steps in
+// attention_wgmma.cuh, both shared with the block-sparse kernels.
 
-#include "attention_tiles.cuh"
-#include "hopper_tiles.cuh"
+#include "attention_wgmma.cuh"
+#include "wide_attention.cuh"
 
 namespace {
 
@@ -216,9 +218,6 @@ fa_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // D = 128) and dQ's 190 (dQ 64, S and dP 64, the dS fragments 16); see
 // fa_dkv_wgmma_kernel.
 
-constexpr int kWgRows = 64;                  // rows a consumer warpgroup owns
-constexpr int kWgBlock = 2 * kWgRows;        // rows a block owns
-constexpr int kConsumerThreads = 2 * 128;
 constexpr int kWgThreads = kConsumerThreads + 128;  // + the producer
 // setmaxnreg's budget: each of an SM's four quarters runs one producer
 // warp and two consumer warps, and holds 3 x 168 registers a lane from
@@ -227,32 +226,11 @@ constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 static_assert(kProducerRegs + 2 * kConsumerRegs <= 3 * 168,
               "setmaxnreg asks for more registers than the block holds");
 constexpr int kFwdStages = 4;                // K/V ring of the forward
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kDkvStages = 3;                // q/dO/lse/delta ring of dK/dV
-constexpr int kDqStages = 4;                 // K/V ring of dQ
-
-template <int D>
-__host__ __device__ constexpr int tile_bytes(int rows) {
-  return rows * D * 2;
-}
 
 template <int D>
 constexpr size_t fwd_wgmma_smem() {
   return 1024 + tile_bytes<D>(kWgBlock) +
          2 * kFwdStages * tile_bytes<D>(kTile) + (1 + 2 * kFwdStages) * 8;
-}
-
-template <int D>
-constexpr size_t dkv_wgmma_smem() {
-  return 1024 + 2 * tile_bytes<D>(kWgBlock) +
-         kDkvStages * (2 * tile_bytes<D>(kTile) + 2 * kTile * 4) +
-         (1 + 2 * kDkvStages) * 8;
-}
-
-template <int D>
-constexpr size_t dq_wgmma_smem() {
-  return 1024 + 2 * tile_bytes<D>(kWgBlock) +
-         2 * kDqStages * tile_bytes<D>(kTile) + (1 + 2 * kDqStages) * 8;
 }
 
 // One kv tile (K at k_base, V at v_base, 64 rows each) against the
@@ -438,68 +416,6 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// One kv tile (K at k_base, V at v_base, 64 rows each) against the
-// warpgroup's 64 q rows rows[h] (Q, dO at q_base, do_base in the block's
-// 128-row tiles; lse_l2 = lse log2(e) and delta of the rows): S = Q K^T
-// and dP = dO V^T, committed apart so that p is computed while dP runs,
-// then dq += ds K, as dq_tile_mma.
-template <int D>
-__device__ __forceinline__ void dq_tile_wgmma(
-    float (&dq)[D / 8][4], uint32_t q_base, uint32_t do_base,
-    uint32_t k_base, uint32_t v_base, const int (&rows)[2],
-    const float (&lse_l2)[2], const float (&dl)[2], int c0, bool mask,
-    int offset, float scale, const Dropout& drop, uint32_t key) {
-  const int tig = threadIdx.x % 4;
-  const float scale_log2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
-  float s[kTile / 8][4] = {}, dp[kTile / 8][4] = {};
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<kTile>(s, kmajor_desc(q_base, kk, kWgBlock),
-                    kmajor_desc(k_base, kk, kTile), kk > 0);
-  wg_commit();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<kTile>(dp, kmajor_desc(do_base, kk, kWgBlock),
-                    kmajor_desc(v_base, kk, kTile), kk > 0);
-  wg_commit();
-  // p while dP is still in the tensor cores
-  wg_wait<1>();
-  wg_fence_regs(s);
-#pragma unroll
-  for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int h = e >> 1, col = c0 + j * 8 + 2 * tig + (e & 1);
-      const bool masked = mask && rows[h] + offset < col;
-      s[j][e] =
-          masked ? 0.f : exp2f(fmaf(s[j][e], scale_log2, -lse_l2[h]));
-    }
-  wg_wait<0>();
-  wg_fence_regs(dp);
-#pragma unroll
-  for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int h = e >> 1, col = c0 + j * 8 + 2 * tig + (e & 1);
-      float dpv = dp[j][e];
-      if (drop.on) {
-        const uint32_t bits = dropout_bits(key, rows[h], col);
-        dpv = bits >= drop.threshold ? dpv / drop.keep_div : 0.f;
-      }
-      s[j][e] = s[j][e] * (dpv - dl[h]) * scale;  // ds
-    }
-  uint32_t da[kTile / 16][4];
-  to_a_frags<kTile / 8>(da, s);  // rounded to bf16, as the reference
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk)
-    wgmma_rs_t<D>(dq, da[kk], mnmajor_desc(k_base, kk, kTile));
-  wg_commit();
-  wg_wait<0>();
-  wg_fence_regs(dq);
-}
-
 // dQ runs as dK/dV does, without a producer warpgroup (its consumers take
 // 190 registers a thread at D = 128): 256 threads, and one of them keeps the
 // K/V ring's TMA loads in flight, refilling a stage with the tile
@@ -614,67 +530,6 @@ fa_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       tma_store_drain();
     }
   }
-}
-
-// One 64-row q tile (Q, dO at q_base, do_base; its lse and delta in
-// shared memory) against the warpgroup's 64 kv rows cols[h] (K, V at
-// k_base, v_base in the block's 128-row tiles): S^T = K Q^T and
-// dP^T = V dO^T, then dv += p_drop^T dO and dk += ds^T Q, as dkv_tile_mma.
-template <int D>
-__device__ __forceinline__ void dkv_tile_wgmma(
-    float (&dk_acc)[D / 8][4], float (&dv_acc)[D / 8][4], uint32_t k_base,
-    uint32_t v_base, uint32_t q_base, uint32_t do_base, const float* lse_t,
-    const float* dl_t, const int (&cols)[2], int r0, bool mask, int offset,
-    float scale, const Dropout& drop, uint32_t key) {
-  const int tig = threadIdx.x % 4;
-  const float scale_log2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
-  float st[kTile / 8][4] = {}, dpt[kTile / 8][4] = {};
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<kTile>(st, kmajor_desc(k_base, kk, kWgBlock),
-                    kmajor_desc(q_base, kk, kTile), kk > 0);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<kTile>(dpt, kmajor_desc(v_base, kk, kWgBlock),
-                    kmajor_desc(do_base, kk, kTile), kk > 0);
-  wg_commit();
-  wg_wait<0>();
-  wg_fence_regs(st);
-  wg_fence_regs(dpt);
-#pragma unroll
-  for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int rl = j * 8 + 2 * tig + (e & 1), row = r0 + rl;
-      const int col = cols[e >> 1];
-      const bool masked = mask && row + offset < col;
-      const float p =
-          masked ? 0.f
-                 : exp2f(fmaf(st[j][e], scale_log2, -lse_t[rl] * kLog2e));
-      float p_drop = p, dpv = dpt[j][e];
-      if (drop.on) {
-        const bool keep = dropout_bits(key, row, col) >= drop.threshold;
-        p_drop = keep ? p * drop.keep_inv : 0.f;
-        dpv = keep ? dpv * drop.keep_inv : 0.f;
-      }
-      dpt[j][e] = p * (dpv - dl_t[rl]) * scale;  // ds^T
-      st[j][e] = p_drop;
-    }
-  uint32_t pa[kTile / 16][4], da[kTile / 16][4];
-  to_a_frags<kTile / 8>(pa, st);  // rounded to bf16, as the reference
-  to_a_frags<kTile / 8>(da, dpt);
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk)
-    wgmma_rs_t<D>(dv_acc, pa[kk], mnmajor_desc(do_base, kk, kTile));
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk)
-    wgmma_rs_t<D>(dk_acc, da[kk], mnmajor_desc(q_base, kk, kTile));
-  wg_commit();
-  wg_wait<0>();
-  wg_fence_regs(dv_acc);
-  wg_fence_regs(dk_acc);
 }
 
 // dK/dV runs without a producer warpgroup. Its consumers need 224
@@ -940,10 +795,11 @@ Dropout make_dropout(unsigned seed, unsigned threshold, float keep_div,
 }  // namespace
 
 // Dispatch on (dtype, padded head dim): dtype 0 = float32 runs the FMA
-// kernels (FP32), 1 = bfloat16 the tensor-core kernels (BF16); head_dim 64
-// or 128. Everything else is refused with cudaErrorInvalidValue before any
-// launch.
-#define FA_DISPATCH(FP32, BF16, ...)                                       \
+// kernels (FP32), 1 = bfloat16 the tensor-core kernels (BF16), at head_dim
+// 64 or 128; head_dim 192..512 (multiples of 64) runs the wide kernels
+// (WIDE) in either dtype, over a dense walk. Everything else is refused
+// with cudaErrorInvalidValue before any launch.
+#define FA_DISPATCH(FP32, BF16, WIDE, WALK, ...)                           \
   do {                                                                     \
     if (dtype == 0 && head_dim == 64)                                      \
       return (int)FP32<float, 64>(__VA_ARGS__);                            \
@@ -951,6 +807,10 @@ Dropout make_dropout(unsigned seed, unsigned threshold, float keep_div,
       return (int)FP32<float, 128>(__VA_ARGS__);                           \
     if (dtype == 1 && head_dim == 64) return (int)BF16<64>(__VA_ARGS__);   \
     if (dtype == 1 && head_dim == 128) return (int)BF16<128>(__VA_ARGS__); \
+    if (wide_head_dim(head_dim) && dtype == 0)                             \
+      return (int)WIDE<float> WALK;                                        \
+    if (wide_head_dim(head_dim) && dtype == 1)                             \
+      return (int)WIDE<__nv_bfloat16> WALK;                                \
     return (int)cudaErrorInvalidValue;                                     \
   } while (0)
 
@@ -966,8 +826,10 @@ int fa_fwd_launch(const void* q, const void* k, const void* v, void* out,
   const Dropout drop =
       make_dropout(seed, threshold, keep_div, keep_inv, dropout_on);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FA_DISPATCH(launch_fwd, launch_fwd_wgmma, q, k, v, out, lse, bh, sq, sk,
-              causal, scale, drop, st);
+  FA_DISPATCH(launch_fwd, launch_fwd_wgmma, launch_wide_fwd,
+              (q, k, v, out, lse, dense_list(sk), bh, sq, sk, head_dim,
+               causal, scale, drop, st),
+              q, k, v, out, lse, bh, sq, sk, causal, scale, drop, st);
 }
 
 int fa_dq_launch(const void* q, const void* k, const void* v,
@@ -980,8 +842,11 @@ int fa_dq_launch(const void* q, const void* k, const void* v,
   const Dropout drop =
       make_dropout(seed, threshold, keep_div, keep_inv, dropout_on);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FA_DISPATCH(launch_dq, launch_dq_wgmma, q, k, v, dout, lse, delta, dq, bh,
-              sq, sk, causal, scale, drop, st);
+  FA_DISPATCH(launch_dq, launch_dq_wgmma, launch_wide_dq,
+              (q, k, v, dout, lse, delta, dq, dense_list(sk), bh, sq, sk,
+               head_dim, causal, scale, drop, st),
+              q, k, v, dout, lse, delta, dq, bh, sq, sk, causal, scale, drop,
+              st);
 }
 
 int fa_dkv_launch(const void* q, const void* k, const void* v,
@@ -994,8 +859,11 @@ int fa_dkv_launch(const void* q, const void* k, const void* v,
   const Dropout drop =
       make_dropout(seed, threshold, keep_div, keep_inv, dropout_on);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FA_DISPATCH(launch_dkv, launch_dkv_wgmma, q, k, v, dout, lse, delta, dk,
-              dv, bh, sq, sk, causal, scale, drop, st);
+  FA_DISPATCH(launch_dkv, launch_dkv_wgmma, launch_wide_dkv,
+              (q, k, v, dout, lse, delta, dk, dv, dense_list(sq), bh, sq, sk,
+               head_dim, causal, scale, drop, st),
+              q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal, scale,
+              drop, st);
 }
 
 const char* fa_error_string(int code) {

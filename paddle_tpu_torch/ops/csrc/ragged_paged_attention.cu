@@ -57,7 +57,8 @@
 //     which it resets to 0 for the next launch) merges them into out.
 //     A split covers at most kMaxSplit positions, so that its pool rows
 //     fit shared memory beside the ring and a pass.
-// Everything accumulates in fp32 (p enters the tensor-core P.V in bf16).
+// Everything accumulates in fp32 (p enters the tensor-core P.V as two bf16
+// parts, high and low, so it keeps about 16 bits).
 // Rows that belong to no valid segment slot are never written; the
 // wrapper hands in a zeroed output.
 
@@ -154,6 +155,17 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) as a packed bf16 pair hi and the packed bf16 pair of what the
+// rounding left, lo: hi + lo holds each value to about 16 bits.
+__device__ __forceinline__ void split_bf16(uint32_t& hi, uint32_t& lo,
+                                           float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // One thread's 16-byte vector of T as kVec floats.
@@ -480,7 +492,8 @@ __device__ __forceinline__ void run_pass(const SegWork<T>& w) {
 // chunk against all 16 rows (rows past the tile are zero q): S = q k^T by
 // mma.sync.m16n8k16 (fp32 accumulation, scaled in fp32), the warp's own
 // online softmax over its tokens in registers, p re-packed from the S
-// fragments into the A operand of O += p v (p rounded to bf16 there). The
+// fragments into the A operands of O += p v (as a bf16 high and low part,
+// two products, so p keeps about 16 bits as the reference's fp32). The
 // warps' states (m, l, O) are merged through shared memory at the end of
 // the pass into acc, m and l, so no barrier is spent on the softmax.
 template <int D>
@@ -567,17 +580,22 @@ __device__ __forceinline__ void run_pass_mma(
         o[j][2 * hr + 1] *= alpha;
       }
     }
-    pa[0] = pack_bf16(sc[0][0], sc[0][1]);
-    pa[1] = pack_bf16(sc[0][2], sc[0][3]);
-    pa[2] = pack_bf16(sc[1][0], sc[1][1]);
-    pa[3] = pack_bf16(sc[1][2], sc[1][3]);
+    // p as a bf16 high part and the bf16 rounding of what it leaves, so
+    // P.V keeps p to about 16 bits, as the reference's fp32 p
+    uint32_t pl[4];
+    split_bf16(pa[0], pl[0], sc[0][0], sc[0][1]);
+    split_bf16(pa[1], pl[1], sc[0][2], sc[0][3]);
+    split_bf16(pa[2], pl[2], sc[1][0], sc[1][1]);
+    split_bf16(pa[3], pl[3], sc[1][2], sc[1][3]);
 #pragma unroll
     for (int nd = 0; nd < D / 16; ++nd) {
       uint32_t b[4];
       ldsm_x4_trans(b, vs + (t0 + (lane & 15)) * kP + nd * 16 +
                            (lane >> 4) * 8);
       mma16816(o[2 * nd], pa, b[0], b[1]);
+      mma16816(o[2 * nd], pl, b[0], b[1]);
       mma16816(o[2 * nd + 1], pa, b[2], b[3]);
+      mma16816(o[2 * nd + 1], pl, b[2], b[3]);
     }
     __syncthreads();  // every warp is done with this stage
   }

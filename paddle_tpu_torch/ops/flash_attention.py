@@ -45,7 +45,7 @@ KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_dq",
                 "flash_attention_dkv")
 _SOURCE = "flash_attention"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = tuple(range(64, 513, 64))  # 192.. run the wide kernels
 _TILE = 64
 _M32 = 0xFFFFFFFF
 
@@ -103,10 +103,16 @@ def dropout_keep(seed: int, bh: int, seq_q: int, seq_k: int, rate: float,
 
 
 # ------------------------------------------------------- plain versions
+#
+# The plain versions sum in float64 and round once, to the input dtype
+# (p and ds where the reference casts them, and each output): their
+# results do not depend on how a BLAS splits its sums, which may vary
+# with threads and load, so they are a fixed reference for the kernels
+# and the JAX package's Pallas kernels alike.
 
 def _scores(q, k, causal: bool, scale: float):
-    """fp32 ``q k^T * scale`` with the causal mask as -inf."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    """float64 ``q k^T * scale`` with the causal mask as -inf."""
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2)) * scale
     if causal:
         sq, sk = s.shape[-2:]
         rows = torch.arange(sq, device=s.device)[:, None]
@@ -129,13 +135,13 @@ def flash_fwd_torch(q, k, v, causal: bool, scale: float,
     l = p.sum(dim=-1, keepdim=True)
     if dropout > 0.0:
         p = torch.where(_keep(q, k, dropout, seed), p / (1.0 - dropout), 0.0)
-    acc = torch.matmul(p.to(q.dtype).float(), v.float())
-    return (acc / l).to(q.dtype), (m + torch.log(l)).squeeze(-1)
+    acc = torch.matmul(p.to(q.dtype).double(), v.double())
+    return (acc / l).to(q.dtype), (m + torch.log(l)).squeeze(-1).float()
 
 
 def _p_dp(q, k, v, do, lse, causal, scale):
-    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
-    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    p = torch.exp(_scores(q, k, causal, scale) - lse.double()[..., None])
+    dp = torch.matmul(do.double(), v.double().transpose(-1, -2))
     return p, dp
 
 
@@ -146,8 +152,8 @@ def flash_dq_torch(q, k, v, do, lse, delta, causal: bool, scale: float,
     if dropout > 0.0:
         dp = torch.where(_keep(q, k, dropout, seed), dp / (1.0 - dropout),
                          0.0)
-    ds = p * (dp - delta[..., None]) * scale
-    return torch.matmul(ds.to(q.dtype).float(), k.float()).to(q.dtype)
+    ds = p * (dp - delta.double()[..., None]) * scale
+    return torch.matmul(ds.to(q.dtype).double(), k.double()).to(q.dtype)
 
 
 def flash_dkv_torch(q, k, v, do, lse, delta, causal: bool, scale: float,
@@ -160,10 +166,10 @@ def flash_dkv_torch(q, k, v, do, lse, delta, causal: bool, scale: float,
         inv = 1.0 / (1.0 - dropout)
         p_drop = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
-    ds = p * (dp - delta[..., None]) * scale
-    dv = torch.matmul(p_drop.to(do.dtype).float().transpose(-1, -2),
-                      do.float())
-    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
+    ds = p * (dp - delta.double()[..., None]) * scale
+    dv = torch.matmul(p_drop.to(do.dtype).double().transpose(-1, -2),
+                      do.double())
+    dk = torch.matmul(ds.to(q.dtype).double().transpose(-1, -2), q.double())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -237,8 +243,8 @@ def _launch(name: str, fn, args, q, k, causal, scale, dropout, seed):
 
 def flash_fwd(q, k, v, causal: bool, scale: float, dropout: float = 0.0,
               seed: int = 0, impl: str = "auto"):
-    """Forward on ``[BH, S, D]`` (D 64 or 128 on the card): ``(out,
-    lse)``."""
+    """Forward on ``[BH, S, D]`` (D a multiple of 64 up to 512 on the
+    card): ``(out, lse)``."""
     if _build.pick_impl(impl, q) == "torch":
         return flash_fwd_torch(q, k, v, causal, scale, dropout, seed)
     out = torch.empty_like(q)
@@ -296,7 +302,8 @@ class _FlashBHSD(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
-        delta = (do.float() * out.float()).sum(dim=-1)
+        # summed in float64 and rounded once, as the plain versions do
+        delta = (do.double() * out.double()).sum(dim=-1).float()
         dq = flash_dq(q, k, v, do, lse, delta, *ctx.args)
         dk, dv = flash_dkv(q, k, v, do, lse, delta, *ctx.args)
         return dq, dk, dv, None, None, None, None

@@ -166,17 +166,17 @@ def _rpa_module():
     return importlib.import_module(__package__ + ".ragged_paged_attention")
 
 
-def load_tree(root: Path):
-    """``paddle_tpu_torch.ops.ragged_paged_attention`` of the checkout at
-    ``root``, imported beside this one: the package's modules are set
-    aside while it loads, then put back (the loaded modules keep their
-    own)."""
+def load_tree(root: Path, module: str = "ops.ragged_paged_attention"):
+    """``paddle_tpu_torch.<module>`` of the checkout at ``root``, imported
+    beside this one: the package's modules are set aside while it loads,
+    then put back (the loaded modules keep their own, and build their
+    kernels into ``root``)."""
     name = __package__.split(".")[0]
     mine = {k: sys.modules.pop(k) for k in list(sys.modules)
             if k == name or k.startswith(name + ".")}
     sys.path.insert(0, str(root))
     try:
-        return importlib.import_module(name + ".ops.ragged_paged_attention")
+        return importlib.import_module(f"{name}.{module}")
     finally:
         sys.path.remove(str(root))
         for k in [k for k in sys.modules

@@ -62,6 +62,9 @@ BLOCK_CASES = [
     # blk_q 256, blk_k 128: one q block spans two kernel tiles of kv
     (1, 512, 2, 32, np.array([[1, 1, 0, 0], [1, 0, 1, 1]], bool), True),
     (1, 512, 1, 128, np.array([[1, 0, 0, 1], [0, 1, 1, 0]], bool), False),
+    # head dims past 128: the card runs its wide kernels
+    (1, 256, 2, 192, M_LG, False),
+    (1, 512, 1, 256, np.array([[1, 1, 0, 0], [1, 0, 1, 1]], bool), True),
 ]
 
 
@@ -107,6 +110,38 @@ def test_fully_masked_rows_are_zero_where_the_reference_is_nan():
     assert all(np.isfinite(x).all() for x in grads)
     # the rows' gradients are zero: they depend on nothing
     assert (grads[0][:, nan_rows] == 0).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_launch_orders_are_heaviest_first(causal):
+    """BlockMask's launch orders (the wgmma kernels' grid walks them) are
+    permutations of the q and kv blocks with the longest lists first, ties
+    in index order: on a BigBird-like pattern the global kv blocks, which
+    every q block attends, launch first, and a kv block nothing attends
+    last."""
+    rs = np.random.RandomState(3)
+    mask = bsa.local_global_mask(16, 16, window=1, global_blocks=2)
+    for i in range(16):
+        mask[i, rs.choice(16, 2, replace=False)] = True
+    mask[:, 9] = False  # kv block 9: nothing attends
+    spec = bsa.block_mask_spec(mask, 2048, 2048, causal)
+    for order, counts in ((spec.order_q, spec.counts),
+                          (spec.order_kv, spec.rcounts)):
+        assert order.dtype == np.int32
+        np.testing.assert_array_equal(np.sort(order), np.arange(16))
+        heavy = counts[order]
+        assert (np.diff(heavy) <= 0).all()
+        ties = heavy[1:] == heavy[:-1]
+        assert (order[1:][ties] > order[:-1][ties]).all()
+    assert spec.rcounts[9] == 0 and spec.order_kv[-1] == 9
+    if not causal:
+        np.testing.assert_array_equal(spec.order_kv[:2], [0, 1])
+        assert spec.rcounts[0] == spec.rcounts[1] == 16
+    # the device copies the kernels read, in the lists' order
+    lists = spec.lists("cpu")
+    assert [t.dtype for t in lists] == [torch.int32] * 6
+    np.testing.assert_array_equal(lists[2].numpy(), spec.order_q)
+    np.testing.assert_array_equal(lists[5].numpy(), spec.order_kv)
 
 
 def test_lists_equal_the_reference_arrays(monkeypatch):

@@ -103,6 +103,26 @@ def test_kernel_matches_plain(card, segs, n_pad, heads, hdim, bs, maxb, tq,
     assert torch.all(got[n_live:] == 0)
 
 
+def test_tensor_core_pass_keeps_p_to_16_bits(card):
+    """A full-width bf16 serving mix (H 16, D 128, B 16, MAXB 128, q_tile
+    8: decode rows of 1..2048 tokens and 8-row prefill tiles at unaligned
+    offsets) through the segmented kernel, whose multi-row tiles run the
+    tensor-core pass: p enters P.V as a bf16 high and low part, so the
+    output is the fp32-p plain version's within 1e-4 in relative norm
+    (p rounded to bf16 alone read 1.5e-3). Prints the reading."""
+    rs = np.random.RandomState(11)
+    segs = [(1, int(n)) for n in rs.randint(0, 2048, 16)]
+    segs += [(8, int(p)) for p in rs.randint(1, 2040, 24)]
+    args, _ = step_inputs(segs, 8, 16, 128, 16, 128, 8, num_blocks=2048,
+                          dtype=torch.bfloat16, device=card, seed=12)
+    got = ragged_paged_attention_chunked(*args, impl="cuda")
+    want = ragged_paged_attention_chunked(*args, impl="torch")
+    rel = rel_err(got, want)
+    print(f"segmented bf16 mix rel err: {rel} (limit 1e-4)")
+    _close(got, want, torch.bfloat16)
+    assert rel <= 1e-4
+
+
 def test_kernel_rejects_what_it_does_not_take(card):
     args, _ = step_inputs([(2, 3)], 1, 2, 32, 4, 4, 4, num_blocks=8,
                           dtype=torch.float32, device=card, seed=1)
@@ -532,6 +552,12 @@ FLASH_CASES = [
     (1, 192, 320, 128, False, 0.5),   # 64-multiples the gate would refuse
     (1, 192, 320, 128, True, 0.0),    # causal, odd count of 64-row tiles
     (1, 2048, 2048, 128, True, 0.0),  # the K/V ring wraps many times
+    # padded head dims past 128: the wide kernels
+    (2, 256, 256, 192, True, 0.0),
+    (1, 128, 384, 320, True, 0.3),    # causal offset 256, dropout
+    (1, 256, 128, 512, False, 0.0),   # sq > sk
+    (1, 192, 320, 512, True, 0.2),    # causal dropout, offset 128
+    (2, 128, 128, 448, False, 0.5),
 ]
 
 
@@ -731,21 +757,103 @@ def test_flash_dropout_call_makes_no_host_sync(card):
 
 
 def test_flash_route_raises_for_head_dims_past_128(card):
-    """Head dims above 128 pass the reference's gate (up to 512), so the
-    flash route takes them, but the kernels cover only 64 and 128: the
-    call raises rather than run something else, until they do."""
-    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+    """Head dims past 512 pass no gate of the reference: the flash kernels
+    (padded D 64..512) refuse D 576 rather than run something else, and
+    ``scaled_dot_product_attention`` routes it to the plain composition."""
+    from paddle_tpu_torch.nn.functional import (
+        scaled_dot_product_attention, would_use_flash)
     from paddle_tpu_torch.ops.flash_attention import (flash_attention,
                                                       flash_fwd)
 
-    q = torch.zeros(1, 256, 256, device=card, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim .* got 256"):
-        flash_fwd(q, q, q, True, 256 ** -0.5)
-    x = torch.zeros(1, 256, 2, 200, device=card, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim .* got 256"):
+    q = torch.zeros(1, 256, 576, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim .* got 576"):
+        flash_fwd(q, q, q, True, 576 ** -0.5)
+    x = torch.zeros(1, 256, 2, 550, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim .* got 576"):
         flash_attention(x, x, x, causal=True)
-    with pytest.raises(ValueError, match="head_dim .* got 256"):
-        scaled_dot_product_attention(x, x, x, is_causal=True)
+    assert not would_use_flash(256, 256, 550, causal=True)
+    _build.reset_launches()
+    out = scaled_dot_product_attention(x, x, x, is_causal=True)
+    assert out.shape == x.shape and _build.launches() == {}
+
+
+def _route_grads(call, leaves, impl, monkeypatch):
+    """out and the leaves' gradients of sum(out * w) through ``call``
+    with every kernel entry point on route ``impl``, and the launches."""
+    monkeypatch.setattr(_build, "pick_impl", lambda _, t, i=impl: i)
+    xs = [t.clone().requires_grad_(True) for t in leaves]
+    _build.reset_launches()
+    out = call(*xs)
+    w = torch.linspace(-1, 1, out.numel(), device=out.device).view_as(out)
+    grads = torch.autograd.grad((out.float() * w).sum(), xs)
+    torch.cuda.synchronize()
+    return [out.detach(), *grads], _build.launches()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sdpa_runs_the_wide_kernels_at_head_dim_200(card, dtype,
+                                                    monkeypatch):
+    """``scaled_dot_product_attention`` at D 200 (padded to 256) takes the
+    flash route, launches each wide kernel once, and agrees with the same
+    route on the plain versions, forward and q/k/v gradients; and the
+    plain flash route with the dense composition (fp32)."""
+    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+    from paddle_tpu_torch.nn.functional import attention as att
+    from paddle_tpu_torch.ops.flash_attention import KERNEL_NAMES
+
+    g = torch.Generator(device=card).manual_seed(6)
+    leaves = [torch.randn(2, 256, 2, 200, generator=g, device=card)
+              .to(dtype) for _ in range(3)]
+    call = lambda q, k, v: scaled_dot_product_attention(q, k, v,
+                                                        is_causal=True)
+    got, launches = _route_grads(call, leaves, "cuda", monkeypatch)
+    assert launches == {name: 1 for name in KERNEL_NAMES}
+    want, plain = _route_grads(call, leaves, "torch", monkeypatch)
+    assert plain == {}
+    for a, b in zip(got, want):
+        _close(a, b, dtype)
+    if dtype == torch.float32:
+        dense = lambda q, k, v: att._sdpa_reference(q, k, v, None, 0.0,
+                                                    True, None, True)
+        ref, _ = _route_grads(dense, leaves, "torch", monkeypatch)
+        for a, b in zip(want, ref):
+            assert rel_err(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_attention_runs_the_wide_kernels_at_head_dim_256(
+        card, dtype, monkeypatch):
+    """``sparse_attention``'s block route at D 256 (a BigBird-like CSR at
+    128-token blocks, T 1024) launches each wide block-sparse kernel once
+    and agrees with the same route on the plain versions, forward and
+    q/k/v gradients, and with the dense masked composition (fp32)."""
+    from paddle_tpu_torch.nn.functional import attention as att
+    from paddle_tpu_torch.nn.functional import sparse_attention
+    from paddle_tpu_torch.ops.block_sparse_attention import (
+        KERNEL_NAMES, local_global_mask)
+
+    b, h, t, d = 1, 2, 1024, 256
+    mask = local_global_mask(8, 8, window=1, global_blocks=1)
+    mask[3, 6] = True
+    el = np.kron(mask, np.ones((128, 128), bool))
+    off = np.concatenate([[0], np.cumsum(el.sum(axis=1))])
+    csr = [torch.from_numpy(a.astype(np.int32)).to(card).expand(
+        b, h, a.size).contiguous() for a in (off, np.nonzero(el)[1])]
+    g = torch.Generator(device=card).manual_seed(7)
+    leaves = [torch.randn(b, h, t, d, generator=g, device=card).to(dtype)
+              for _ in range(3)]
+    call = lambda q, k, v: sparse_attention(q, k, v, *csr)
+    got, launches = _route_grads(call, leaves, "cuda", monkeypatch)
+    assert launches == {name: 1 for name in KERNEL_NAMES}
+    want, plain = _route_grads(call, leaves, "torch", monkeypatch)
+    assert plain == {}
+    for a, b_ in zip(got, want):
+        _close(a, b_, dtype)
+    if dtype == torch.float32:
+        dense = lambda q, k, v: att._sa(q, k, v, *csr)
+        ref, _ = _route_grads(dense, leaves, "torch", monkeypatch)
+        for a, b_ in zip(want, ref):
+            assert rel_err(a, b_) <= 1e-5
 
 
 # ------------------------------------------------ block-sparse attention
@@ -771,6 +879,13 @@ BSA_CASES = [
     (2, 1024, 1024, 128, 512, 256, False, 2),
     (1, 512, 1024, 64, 256, 512, True, None),  # causal offset 512
     (1, 1024, 768, 128, 512, 256, True, None),  # sq > sk: rows see none
+    # the bf16 dQ and dK/dV on wgmma: 128-row blocks of 256-row lists
+    (2, 1024, 1024, 64, 256, 256, True, 1),
+    (2, 2048, 1024, 128, 128, 512, False, 1),
+    # padded head dims past 128: the wide kernels
+    (2, 512, 512, 192, 128, 128, True, 1),
+    (1, 1024, 1024, 320, 256, 128, True, None),  # rows that see no column
+    (1, 512, 1024, 512, 256, 512, False, 0),
 ]
 
 
@@ -874,47 +989,113 @@ def test_block_sparse_kernels_reject_what_they_do_not_take(card):
         bsa_fwd(q, k, v, other, False, 0.125)
 
 
+def bigbird_like(n, seed, global_blocks=2):
+    """BigBird's pattern at n blocks: window 3, ``global_blocks`` leading
+    kv blocks every q block attends, 3 random kv blocks a q block."""
+    rs = np.random.RandomState(seed)
+    mask = np.zeros((n, n), bool)
+    for i in range(n):
+        mask[i, max(0, i - 1):i + 2] = True
+        mask[i, :global_blocks] = True
+        mask[i, rs.choice(n, 3, replace=False)] = True
+    return mask
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_block_sparse_backward_on_a_global_heavy_pattern(card, d, causal):
+    """The bf16 wgmma dQ and dK/dV kernels on BigBird's pattern at 16
+    blocks of 128 (the two global kv blocks' lists are the longest, and
+    the launch order puts them first; kv block 5 attended by nothing),
+    against the plain versions; dK/dV's zeros exact."""
+    from paddle_tpu_torch.ops.block_sparse_attention import (
+        block_mask_spec, bsa_dkv, bsa_dq, bsa_fwd)
+
+    mask = bigbird_like(16, seed=d)
+    mask[:, 5] = False
+    spec = block_mask_spec(mask, 2048, 2048, causal)
+    assert list(spec.order_kv[:2]) == [0, 1]
+    q, k, v, do = flash_inputs(4, 2048, 2048, d, torch.bfloat16, card,
+                               seed=d + 1)
+    args = (spec, causal, 1.0 / d ** 0.5)
+    out, lse = bsa_fwd(q, k, v, *args, impl="torch")
+    delta = (do.float() * out.float()).sum(-1)
+    _close(bsa_dq(q, k, v, do, lse, delta, *args),
+           bsa_dq(q, k, v, do, lse, delta, *args, impl="torch"),
+           torch.bfloat16)
+    got = bsa_dkv(q, k, v, do, lse, delta, *args)
+    want = bsa_dkv(q, k, v, do, lse, delta, *args, impl="torch")
+    for a, b in zip(got, want):
+        _close(a, b, torch.bfloat16)
+        assert (a[:, 5 * 128:6 * 128] == 0).all()
+
+
+# each bf16 block-sparse kernel with the first entry of every list of two
+# or more left out: kind -> (kernel, a line of its loop, the line broken).
+# The wgmma kernels' consumers leave the entry's tiles out; the ring's
+# loads and releases go on.
+BSA_MUTATIONS = {
+    "fwd": ("bsa_fwd_mma_kernel", "for (int a = 0; a < n; ++a) {",
+            "for (int a = (n > 1); a < n; ++a) {"),
+    "dq": ("bsa_dq_wgmma_kernel",
+           "if (!(causal && c0 > row0 + kWgRows - 1 + offset))",
+           "if ((t >= per_entry || n == 1) "
+           "&& !(causal && c0 > row0 + kWgRows - 1 + offset))"),
+    "dkv": ("bsa_dkv_wgmma_kernel",
+            "if (!(causal && r0 + kTile - 1 + offset < col0))",
+            "if ((first + i >= per_entry || n == 1) "
+            "&& !(causal && r0 + kTile - 1 + offset < col0))"),
+}
+
+
 def test_block_sparse_limit_rejects_a_kernel_that_skips_a_block(
         card, tmp_path, monkeypatch):
     """The bf16 limit tells a right kernel from a broken one: the
-    tensor-core forward is rebuilt with the first active block of every
-    list of two or more left out, and at the sparse path's shapes (BH 32,
-    S 4096, D 128, BigBird's pattern) its output must miss REL_TOL, while
-    the right kernel meets it. Prints both readings."""
+    tensor-core forward, dQ and dK/dV are each rebuilt with the first
+    entry of every list of two or more left out, and at the sparse path's
+    shapes (BH 32, S 4096, D 128, BigBird's pattern) each result must miss
+    REL_TOL, while the right kernel meets it. Prints both readings."""
     import ctypes
     import subprocess
 
     from paddle_tpu_torch.ops.block_sparse_attention import (
-        block_mask_spec, bsa_fwd)
+        block_mask_spec, bsa_dkv, bsa_dq, bsa_fwd)
 
-    rs = np.random.RandomState(0)
-    n = 32
-    mask = np.zeros((n, n), bool)
-    for i in range(n):  # window 3, global 2, random 3
-        mask[i, max(0, i - 1):i + 2] = True
-        mask[i, :2] = True
-        mask[i, rs.choice(n, 3, replace=False)] = True
-    spec = block_mask_spec(mask, 4096, 4096, False)
-    q, k, v, _ = flash_inputs(32, 4096, 4096, 128, torch.bfloat16, card,
-                              seed=21)
+    spec = block_mask_spec(bigbird_like(32, seed=0), 4096, 4096, False)
+    q, k, v, do = flash_inputs(32, 4096, 4096, 128, torch.bfloat16, card,
+                               seed=21)
     args = (spec, False, 1.0 / 128 ** 0.5)
-    want = bsa_fwd(q, k, v, *args, impl="torch")[0]
-    right = rel_err(bsa_fwd(q, k, v, *args)[0], want)
-    src = tmp_path / "bsa.cu"
-    src.write_text(_mutated_source(
-        "bsa_fwd_mma_kernel", "for (int a = 0; a < n; ++a) {",
-        "for (int a = (n > 1); a < n; ++a) {", "block_sparse_attention"))
-    lib = tmp_path / "libbsa.so"
-    proc = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    assert proc.returncode == 0, proc.stdout.decode()[-2000:]
-    monkeypatch.setitem(_build._LIBS, "block_sparse_attention",
-                        ctypes.CDLL(str(lib)))
-    broken = rel_err(bsa_fwd(q, k, v, *args)[0], want)
-    print(f"block-sparse bf16 rel err, right kernel: {right}; kernel "
-          f"missing a block: {broken}; limit {REL_TOL[torch.bfloat16]}")
-    assert right <= REL_TOL[torch.bfloat16] < broken
+    out, lse = bsa_fwd(q, k, v, *args, impl="torch")
+    delta = (do.float() * out.float()).sum(-1)
+    run = {
+        "fwd": lambda **kw: bsa_fwd(q, k, v, *args, **kw)[0],
+        "dq": lambda **kw: bsa_dq(q, k, v, do, lse, delta, *args, **kw),
+        "dkv": lambda **kw: torch.cat(bsa_dkv(q, k, v, do, lse, delta,
+                                              *args, **kw)),
+    }
+    want = {kind: fn(impl="torch") for kind, fn in run.items()}
+    right = {kind: rel_err(fn(), want[kind]) for kind, fn in run.items()}
+    procs = {}
+    for kind, (kernel, loop, broken) in BSA_MUTATIONS.items():
+        src = tmp_path / f"bsa_{kind}.cu"
+        src.write_text(_mutated_source(kernel, loop, broken,
+                                       "block_sparse_attention"))
+        lib = tmp_path / f"libbsa_{kind}.so"
+        procs[kind] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    broken_err = {}
+    for kind, (lib, proc) in procs.items():
+        out_ = proc.communicate()[0]
+        assert proc.returncode == 0, out_.decode()[-2000:]
+        monkeypatch.setitem(_build._LIBS, "block_sparse_attention",
+                            ctypes.CDLL(str(lib)))
+        broken_err[kind] = rel_err(run[kind](), want[kind])
+    print(f"block-sparse bf16 rel err, right kernels: {right}; kernels "
+          f"missing a list entry: {broken_err}; limit "
+          f"{REL_TOL[torch.bfloat16]}")
+    for kind in BSA_MUTATIONS:
+        assert right[kind] <= REL_TOL[torch.bfloat16] < broken_err[kind]
 
 
 # -------------------------------------------------------------- LayerNorm

@@ -46,6 +46,11 @@ CASES = [
     (1, 256, 384, 2, 64, True, 0.0),     # causal offset 128
     (1, 384, 256, 2, 64, False, 0.0),    # sq > sk, non-causal
     (1, 256, 256, 2, 128, False, 0.3),   # dropout at D = 128
+    # head dims past 128: the card runs its wide kernels (padded D 192..512)
+    (1, 256, 256, 2, 160, False, 0.0),   # D zero-padded to 192
+    (1, 256, 256, 2, 160, True, 0.0),
+    (1, 256, 256, 2, 256, False, 0.0),
+    (1, 256, 256, 2, 256, True, 0.0),
 ]
 
 
