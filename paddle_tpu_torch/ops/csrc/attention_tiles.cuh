@@ -9,7 +9,9 @@
 //   fwd_tile / fwd_tile_mma   online softmax over one kv tile
 //   dq_tile                   dq += ds . k over one kv tile
 //   dkv_tile                  dv += p^T . do, dk += ds^T . q over one q tile
-// and the forward's epilogue (fwd_store / fwd_store_mma). The fp32 steps
+// and the forward's epilogue (fwd_store / fwd_store_mma). The walk itself
+// is a BlockList: a block-sparse kernel's compacted list, or the dense
+// list a flash kernel walks (dense_list). The fp32 steps
 // come in two halves: the scores over the head dim, and the update given
 // the scores (fwd_update, dq_update, dkv_update), which the wide-head-dim
 // kernels (wide_attention.cuh) call on scores they sum over 64-column
@@ -45,6 +47,33 @@ namespace {
 constexpr int kTile = 64;        // rows of a q tile and of a kv tile
 constexpr int kThreads = 256;    // 16 x 16
 constexpr int kLdP = kTile + 4;  // row stride of the P / dS tiles
+
+// The other side's tiles a kernel walks for its own tile at row row0: the
+// tile's logical block is row0 / blk_own, whose list holds idx[blk *
+// width + a] for a < count[blk], each a block of blk_other rows. With idx
+// null the list is one block of blk_other rows at row 0: the flash
+// kernels' dense walk. order, where given, lists the own side's blocks in
+// the order their thread blocks launch (the wgmma kernels').
+struct BlockList {
+  const int* idx;
+  const int* count;
+  const int* order;
+  int width;
+  int blk_own;
+  int blk_other;
+};
+
+__host__ __device__ inline BlockList dense_list(int n_other) {
+  return BlockList{nullptr, nullptr, nullptr, 1, kTile, n_other};
+}
+
+__device__ __forceinline__ int list_len(const BlockList& L, int blk) {
+  return L.idx == nullptr ? 1 : L.count[blk];
+}
+
+__device__ __forceinline__ int list_row(const BlockList& L, int blk, int a) {
+  return (L.idx == nullptr ? 0 : L.idx[blk * L.width + a]) * L.blk_other;
+}
 
 template <typename T> __device__ __forceinline__ float to_float(T x);
 template <> __device__ __forceinline__ float to_float<float>(float x) {

@@ -35,33 +35,6 @@ namespace {
 
 constexpr int kSlice = kTile;  // output columns a block owns; also a chunk
 
-// The other side's tiles a kernel walks for its own tile at row row0: the
-// tile's logical block is row0 / blk_own, whose list holds idx[blk *
-// width + a] for a < count[blk], each a block of blk_other rows. With idx
-// null the list is one block of blk_other rows at row 0: the flash
-// kernels' dense walk. order, where given, lists the own side's blocks in
-// the order their thread blocks launch (the wgmma kernels').
-struct BlockList {
-  const int* idx;
-  const int* count;
-  const int* order;
-  int width;
-  int blk_own;
-  int blk_other;
-};
-
-__host__ __device__ inline BlockList dense_list(int n_other) {
-  return BlockList{nullptr, nullptr, nullptr, 1, kTile, n_other};
-}
-
-__device__ __forceinline__ int list_len(const BlockList& L, int blk) {
-  return L.idx == nullptr ? 1 : L.count[blk];
-}
-
-__device__ __forceinline__ int list_row(const BlockList& L, int blk, int a) {
-  return (L.idx == nullptr ? 0 : L.idx[blk * L.width + a]) * L.blk_other;
-}
-
 // s += (rows a0.. of A) (rows b0.. of B)^T over all d columns, A and B
 // row-major of pitch d (64 rows each), 64 columns staged at a time: at
 // as A's chunk transposed [64][64], bs as B's [64][65]. Begins with a

@@ -103,16 +103,10 @@ def dropout_keep(seed: int, bh: int, seq_q: int, seq_k: int, rate: float,
 
 
 # ------------------------------------------------------- plain versions
-#
-# The plain versions sum in float64 and round once, to the input dtype
-# (p and ds where the reference casts them, and each output): their
-# results do not depend on how a BLAS splits its sums, which may vary
-# with threads and load, so they are a fixed reference for the kernels
-# and the JAX package's Pallas kernels alike.
 
 def _scores(q, k, causal: bool, scale: float):
-    """float64 ``q k^T * scale`` with the causal mask as -inf."""
-    s = torch.matmul(q.double(), k.double().transpose(-1, -2)) * scale
+    """fp32 ``q k^T * scale`` with the causal mask as -inf."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if causal:
         sq, sk = s.shape[-2:]
         rows = torch.arange(sq, device=s.device)[:, None]
@@ -135,13 +129,13 @@ def flash_fwd_torch(q, k, v, causal: bool, scale: float,
     l = p.sum(dim=-1, keepdim=True)
     if dropout > 0.0:
         p = torch.where(_keep(q, k, dropout, seed), p / (1.0 - dropout), 0.0)
-    acc = torch.matmul(p.to(q.dtype).double(), v.double())
-    return (acc / l).to(q.dtype), (m + torch.log(l)).squeeze(-1).float()
+    acc = torch.matmul(p.to(q.dtype).float(), v.float())
+    return (acc / l).to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
 def _p_dp(q, k, v, do, lse, causal, scale):
-    p = torch.exp(_scores(q, k, causal, scale) - lse.double()[..., None])
-    dp = torch.matmul(do.double(), v.double().transpose(-1, -2))
+    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
     return p, dp
 
 
@@ -152,8 +146,8 @@ def flash_dq_torch(q, k, v, do, lse, delta, causal: bool, scale: float,
     if dropout > 0.0:
         dp = torch.where(_keep(q, k, dropout, seed), dp / (1.0 - dropout),
                          0.0)
-    ds = p * (dp - delta.double()[..., None]) * scale
-    return torch.matmul(ds.to(q.dtype).double(), k.double()).to(q.dtype)
+    ds = p * (dp - delta[..., None]) * scale
+    return torch.matmul(ds.to(q.dtype).float(), k.float()).to(q.dtype)
 
 
 def flash_dkv_torch(q, k, v, do, lse, delta, causal: bool, scale: float,
@@ -166,10 +160,10 @@ def flash_dkv_torch(q, k, v, do, lse, delta, causal: bool, scale: float,
         inv = 1.0 / (1.0 - dropout)
         p_drop = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
-    ds = p * (dp - delta.double()[..., None]) * scale
-    dv = torch.matmul(p_drop.to(do.dtype).double().transpose(-1, -2),
-                      do.double())
-    dk = torch.matmul(ds.to(q.dtype).double().transpose(-1, -2), q.double())
+    ds = p * (dp - delta[..., None]) * scale
+    dv = torch.matmul(p_drop.to(do.dtype).float().transpose(-1, -2),
+                      do.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -302,8 +296,7 @@ class _FlashBHSD(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
-        # summed in float64 and rounded once, as the plain versions do
-        delta = (do.double() * out.double()).sum(dim=-1).float()
+        delta = (do.float() * out.float()).sum(dim=-1)
         dq = flash_dq(q, k, v, do, lse, delta, *ctx.args)
         dk, dv = flash_dkv(q, k, v, do, lse, delta, *ctx.args)
         return dq, dk, dv, None, None, None, None
