@@ -280,20 +280,25 @@ def bsa_dkv_torch(q, k, v, do, lse, delta, spec: BlockMask, causal: bool,
 
 # ------------------------------------------------------------ the kernels
 
+def set_signatures(lib) -> None:
+    """The C entries' argument and result types on ``lib``: tensors, then
+    the lists and their launch order, then width, bh, sq, sk, head_dim,
+    blk_q, blk_k, causal, scale, dtype, stream."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tail = [i] * 8 + [f, i, p]
+    lib.bsa_fwd_launch.argtypes = [p] * 8 + tail
+    lib.bsa_dq_launch.argtypes = [p] * 10 + tail
+    lib.bsa_dkv_launch.argtypes = [p] * 11 + tail
+    for fn in (lib.bsa_fwd_launch, lib.bsa_dq_launch, lib.bsa_dkv_launch):
+        fn.restype = ctypes.c_int
+    lib.bsa_error_string.argtypes = [i]
+    lib.bsa_error_string.restype = ctypes.c_char_p
+
+
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     if lib.bsa_fwd_launch.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # lists (and the backward's launch order), width, bh, sq, sk,
-        # head_dim, blk_q, blk_k, causal, scale, dtype, stream
-        tail = [i] * 8 + [f, i, p]
-        lib.bsa_fwd_launch.argtypes = [p] * 7 + tail
-        lib.bsa_dq_launch.argtypes = [p] * 10 + tail
-        lib.bsa_dkv_launch.argtypes = [p] * 11 + tail
-        for fn in (lib.bsa_fwd_launch, lib.bsa_dq_launch, lib.bsa_dkv_launch):
-            fn.restype = ctypes.c_int
-        lib.bsa_error_string.argtypes = [i]
-        lib.bsa_error_string.restype = ctypes.c_char_p
+        set_signatures(lib)
     return lib
 
 
@@ -333,10 +338,10 @@ def bsa_fwd(q, k, v, spec: BlockMask, causal: bool, scale: float,
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     _check(dict(q=q, k=k, v=v, out=out, lse=lse), q, k, spec)
-    cols, counts = spec.lists(q.device)[:2]
+    q_lists = spec.lists(q.device)[:3]
     _launch(KERNEL_NAMES[0], "bsa_fwd_launch",
-            [t.data_ptr() for t in (q, k, v, out, lse)], (cols, counts),
-            cols.shape[1], q, k, spec, causal, scale)
+            [t.data_ptr() for t in (q, k, v, out, lse)], q_lists,
+            q_lists[0].shape[1], q, k, spec, causal, scale)
     return out, lse
 
 

@@ -6,16 +6,17 @@
 // (flash) or the tiles of a q block's compacted list of active kv blocks
 // (block-sparse). So the work on one pair of tiles lives here, once, as a
 // step function a kernel calls from its own loop:
-//   fwd_tile / fwd_tile_mma   online softmax over one kv tile
-//   dq_tile                   dq += ds . k over one kv tile
-//   dkv_tile                  dv += p^T . do, dk += ds^T . q over one q tile
-// and the forward's epilogue (fwd_store / fwd_store_mma). The walk itself
-// is a BlockList: a block-sparse kernel's compacted list, or the dense
-// list a flash kernel walks (dense_list). The fp32 steps
-// come in two halves: the scores over the head dim, and the update given
-// the scores (fwd_update, dq_update, dkv_update), which the wide-head-dim
-// kernels (wide_attention.cuh) call on scores they sum over 64-column
-// chunks. The bf16 backward steps on wgmma are in attention_wgmma.cuh.
+//   fwd_tile   online softmax over one kv tile
+//   dq_tile    dq += ds . k over one kv tile
+//   dkv_tile   dv += p^T . do, dk += ds^T . q over one q tile
+// and the forward's epilogue (fwd_store). The walk itself is a BlockList:
+// a block-sparse kernel's compacted list, or the dense list a flash
+// kernel walks (dense_list). Each step comes in two halves: the scores
+// over the head dim, and the update given the scores (fwd_update,
+// dq_update, dkv_update), which the wide-head-dim kernels
+// (wide_attention.cuh) call on scores they sum over 64-column chunks.
+// These are the fp32 steps, on the FMA units; the bf16 steps on wgmma are
+// in attention_wgmma.cuh.
 //
 // Masked scores are -inf. The running max is -inf-safe: while every
 // column a row has seen is masked, its max stays -inf and the step
@@ -25,16 +26,10 @@
 // is written as 0 and its lse as -inf, and the backward steps give it
 // p = 0 (every one of its scores is masked).
 //
-// Two kinds of step:
-//   fp32  the FMA units: 256 threads as 16 x 16, a thread owning a 4 x 4
-//         block of the 64 x 64 score tile (rows 4*ty..4*ty+3, columns
-//         tx + 16*j) and a 4 x (D/16) block of the accumulators. Typed on
-//         the inputs' T: p and ds are rounded to T, as the reference does.
-//   bf16  the block-sparse forward on tensor cores through
-//         mma.sync.m16n8k16 (fp32 accumulation), 4 warps, each owning 16
-//         rows of the block's own tile; tiles staged in shared memory as
-//         bf16 with a D + 8 pitch; p re-packed from accumulator fragments
-//         straight into A operands.
+// 256 threads as 16 x 16, a thread owning a 4 x 4 block of the 64 x 64
+// score tile (rows 4*ty..4*ty+3, columns tx + 16*j) and a 4 x (D/16) block
+// of the accumulators. Typed on the inputs' T: p and ds are rounded to T,
+// as the reference does.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -446,250 +441,6 @@ __device__ __forceinline__ void dkv_store(const float (&dk_acc)[4][D / 16],
   }
 }
 
-// ------------------------------------------ bf16: tensor cores (mma.sync)
-//
-// A thread holds rows g and g + 8 (g = lane / 4) of its warp's 16 rows at
-// columns 2 * (lane % 4) + {0, 1} of every 8-column accumulator tile, so
-// row reductions are two shuffles within a group of 4 lanes.
-
-constexpr int kWarpsMma = 4;
-constexpr int kThreadsMma = 32 * kWarpsMma;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a . b on one 16 x 8 tile (a 16 x 16, b 16 x 8), fp32 accumulate.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [0, n_rows) of a row-major [*, D] bf16 matrix into shared memory
-// with row pitch D + 8, 16-byte copies.
-template <int D>
-__device__ __forceinline__ void stage_bf16(const __nv_bfloat16* __restrict__ src,
-                                           __nv_bfloat16* __restrict__ dst,
-                                           int n_rows) {
-  constexpr int kChunks = D / 8;
-  for (int e = threadIdx.x; e < n_rows * kChunks; e += kThreadsMma) {
-    const int r = e / kChunks, c = (e % kChunks) * 8;
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
-  }
-}
-
-// acc[j] (16 x 8 tiles j = 0..NT-1) += A[16 rows at a_row0] . X^T, where
-// X is a row-major [n][k] tile in shared memory (pitch D + 8): the
-// product over k = 0..D-1 of rows a_row0.. of A (row-major, pitch D + 8)
-// with rows n = 8 j .. 8 j + 7 of X.
-template <int D, int NT>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4],
-                                        const __nv_bfloat16* A, int a_row0,
-                                        const __nv_bfloat16* X) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, A + (a_row0 + (lane & 15)) * (D + 8) + kk * 16 +
-                   (lane >> 4) * 8);
-#pragma unroll
-    for (int jp = 0; jp < NT / 2; ++jp) {
-      uint32_t b[4];
-      ldsm_x4(b, X + (jp * 16 + (lane >> 4) * 8 + (lane & 7)) * (D + 8) +
-                     kk * 16 + ((lane >> 3) & 1) * 8);
-      mma16816(acc[2 * jp], a, b[0], b[1]);
-      mma16816(acc[2 * jp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc[j] (16 x 8 tiles over D columns) += P . X, where P is given as
-// bf16 A fragments pa[kk] over the k = 16 kk .. 16 kk + 15 chunks and X
-// is a row-major [k][D] tile in shared memory (pitch D + 8).
-template <int D, int KK>
-__device__ __forceinline__ void mma_px(float (&acc)[D / 8][4],
-                                       const uint32_t (&pa)[KK][4],
-                                       const __nv_bfloat16* X) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk) {
-#pragma unroll
-    for (int jp = 0; jp < D / 16; ++jp) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, X + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
-                               (D + 8) +
-                           jp * 16 + (lane >> 4) * 8);
-      mma16816(acc[2 * jp], pa[kk], b[0], b[1]);
-      mma16816(acc[2 * jp + 1], pa[kk], b[2], b[3]);
-    }
-  }
-}
-
-// Accumulator tiles v[2 kk], v[2 kk + 1] (16 x 8 each) as the bf16 A
-// fragment of the 16 x 16 chunk kk.
-template <int NT>
-__device__ __forceinline__ void to_a_frags(uint32_t (&pa)[NT / 2][4],
-                                           const float (&v)[NT][4]) {
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    pa[kk][0] = pack_bf16(v[2 * kk][0], v[2 * kk][1]);
-    pa[kk][1] = pack_bf16(v[2 * kk][2], v[2 * kk][3]);
-    pa[kk][2] = pack_bf16(v[2 * kk + 1][0], v[2 * kk + 1][1]);
-    pa[kk][3] = pack_bf16(v[2 * kk + 1][2], v[2 * kk + 1][3]);
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Store 16 x D accumulator tiles (rows row0 + g, row0 + g + 8) as bf16.
-template <int D>
-__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* base,
-                                                const float (&acc)[D / 8][4],
-                                                const float (&mul)[2]) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<__nv_bfloat162*>(base + (g + 8 * h) * D + j * 8 +
-                                         2 * tig) =
-          __floats2bfloat162_rn(acc[j][2 * h] * mul[h],
-                                acc[j][2 * h + 1] * mul[h]);
-}
-
-// The forward's running state for the calling thread's two q rows.
-template <int D>
-struct FwdAccMma {
-  float o[D / 8][4];
-  float m[2], l[2];
-  int rows[2];
-};
-
-template <int D>
-__device__ __forceinline__ void fwd_init_mma(FwdAccMma<D>& st, int q0) {
-  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) >> 2;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) st.o[j][e] = 0.f;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    st.m[h] = -INFINITY;
-    st.l[h] = 0.f;
-    st.rows[h] = q0 + warp * 16 + g + 8 * h;
-  }
-}
-
-// One kv tile (columns c0..c0+63, ks and vs staged) against the warp's 16
-// rows of the q tile qs.
-template <int D>
-__device__ __forceinline__ void fwd_tile_mma(FwdAccMma<D>& st,
-                                             const __nv_bfloat16* qs,
-                                             const __nv_bfloat16* ks,
-                                             const __nv_bfloat16* vs, int c0,
-                                             int causal, int offset,
-                                             float scale, const Dropout& drop,
-                                             uint32_t key) {
-  const int warp = threadIdx.x / 32, tig = threadIdx.x % 4;
-  float s[kTile / 8][4] = {};
-  mma_abt<D, kTile / 8>(s, qs, warp * 16, ks);
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = c0 + j * 8 + 2 * tig + (e & 1);
-      float x = s[j][e] * scale;
-      if (causal && st.rows[e >> 1] + offset < col) x = -INFINITY;
-      s[j][e] = x;
-      mx[e >> 1] = fmaxf(mx[e >> 1], x);
-    }
-  float alpha[2], m_use[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float m_new = fmaxf(st.m[h], quad_max(mx[h]));
-    m_use[h] = safe_max(m_new);
-    alpha[h] = expf(st.m[h] - m_use[h]);
-    st.m[h] = m_new;
-  }
-#pragma unroll
-  for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = expf(s[j][e] - m_use[e >> 1]);
-      rs[e >> 1] += p;
-      float pd = p;
-      if (drop.on) {
-        const uint32_t bits = dropout_bits(
-            key, st.rows[e >> 1], c0 + j * 8 + 2 * tig + (e & 1));
-        pd = bits >= drop.threshold ? p / drop.keep_div : 0.f;
-      }
-      s[j][e] = pd;
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) st.l[h] = alpha[h] * st.l[h] + quad_sum(rs[h]);
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) st.o[j][e] *= alpha[e >> 1];
-  uint32_t pa[kTile / 16][4];
-  to_a_frags<kTile / 8>(pa, s);
-  mma_px<D, kTile / 16>(st.o, pa, vs);
-}
-
-// out = o / l and lse = m + log(l) for the warp's 16 rows (out points at
-// the block's first row); 0 and -inf for a row that saw no unmasked
-// column.
-template <int D>
-__device__ __forceinline__ void fwd_store_mma(const FwdAccMma<D>& st,
-                                              __nv_bfloat16* out, float* lse,
-                                              int q0) {
-  const int warp = threadIdx.x / 32, tig = threadIdx.x % 4;
-  float inv[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) inv[h] = st.l[h] > 0.f ? 1.f / st.l[h] : 0.f;
-  store_rows_bf16<D>(out + (size_t)(q0 + warp * 16) * D, st.o, inv);
-  if (tig == 0)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      lse[st.rows[h]] =
-          st.l[h] > 0.f ? st.m[h] + logf(st.l[h]) : -INFINITY;
-}
-
 // ---------------------------------------------------------------- launch
 
 template <typename Kernel>
@@ -716,8 +467,5 @@ constexpr size_t dkv_smem() {
                   2 * kTile) *
          sizeof(float);
 }
-template <int D>
-constexpr size_t fwd_smem_mma() {
-  return (size_t)3 * kTile * (D + 8) * sizeof(__nv_bfloat16);
-}
+
 }  // namespace

@@ -4,10 +4,12 @@
 //
 // Replaces the three Pallas TPU kernels of
 // paddle_tpu/ops/pallas/block_sparse_attention.py:
-//   bsa_fwd_[mma_]kernel    <- _bsa_fwd_kernel  (:92, pallas_call :146)
+//   bsa_fwd_[wgmma_]kernel  <- _bsa_fwd_kernel  (:92, pallas_call :146)
 //   bsa_dq_[wgmma_]kernel   <- _bsa_dq_kernel   (:182, pallas_call :271)
 //   bsa_dkv_[wgmma_]kernel  <- _bsa_dkv_kernel  (:216, pallas_call :310)
-// and, at D 192..512, the wide kernels of wide_attention.cuh.
+// (bsa_fwd_wgmma_kernel lives in attention_wgmma.cuh: the flash forward
+// at D 192 and 256 runs it too) and, at D 192..512, the wide kernels of
+// wide_attention.cuh (but for the bf16 forward at 192 and 256).
 // The TPU grid is (BH, n blocks, list slot): each step's BlockSpec index
 // map reads the list, so inactive blocks are never copied from HBM, and
 // the sums ride in VMEM scratch from slot to slot. Here one thread block
@@ -39,9 +41,9 @@
 // D=128, bf16, 227 active 128 x 128 block pairs of 1024 per head) that
 // is 60.9 GFLOP and 135 MB: 0.062 ms by operations against 0.040 ms by
 // bytes, so all three kernels (dQ 6 D, dK/dV 8 D FLOP a pair) are bound
-// by the tensor cores. Instantiations: bf16 dQ and dK/dV on wgmma fed by
-// TMA rings (the flash backward's design, below); the bf16 forward on
-// mma.sync with synchronous staging; fp32 on the FMA units.
+// by the tensor cores. Instantiations: bf16 on wgmma fed by TMA rings
+// (the flash kernels' design: dQ and dK/dV below, the forward in
+// attention_wgmma.cuh); fp32 on the FMA units.
 
 #include "attention_wgmma.cuh"
 #include "wide_attention.cuh"
@@ -180,53 +182,18 @@ bsa_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   dkv_store<T, D>(dk_acc, dv_acc, dk, dv, (size_t)bh * sk + c0);
 }
 
-// ------------------------------------------ bf16: tensor cores (mma.sync)
-
-template <int D>
-__global__ void __launch_bounds__(kThreadsMma)
-bsa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                   BlockList L, int sq, int sk, int causal, float scale) {
-  constexpr int kLd = D + 8;
-  const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
-  const int offset = sk - sq;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kTile * kLd;
-  __nv_bfloat16* vs = ks + kTile * kLd;
-
-  stage_bf16<D>(q + ((size_t)bh * sq + q0) * D, qs, kTile);
-  FwdAccMma<D> st;
-  fwd_init_mma(st, q0);
-  const Dropout none{};
-  const int blk = q0 / L.blk_own, n = L.count[blk];
-  for (int a = 0; a < n; ++a) {
-    const int k0 = L.idx[blk * L.width + a] * L.blk_other;
-    for (int c0 = k0; c0 < k0 + L.blk_other; c0 += kTile) {
-      if (causal && c0 > q0 + kTile - 1 + offset) break;
-      __syncthreads();
-      stage_bf16<D>(k + ((size_t)bh * sk + c0) * D, ks, kTile);
-      stage_bf16<D>(v + ((size_t)bh * sk + c0) * D, vs, kTile);
-      __syncthreads();
-      fwd_tile_mma<D>(st, qs, ks, vs, c0, causal, offset, scale, none, 0u);
-    }
-  }
-  fwd_store_mma<D>(st, out + (size_t)bh * sq * D, lse + (size_t)bh * sq, q0);
-}
-
 // ------------------------------------------ bf16: wgmma fed by TMA rings
 //
 // The backward's bf16 kernels run the flash dQ and dK/dV kernels' design
 // (flash_attention.cu fa_dq_wgmma_kernel, fa_dkv_wgmma_kernel, their tile
-// steps shared through attention_wgmma.cuh): a block owns 128 rows of its
-// side, two consumer warpgroups of 64, 256 threads; one thread keeps a
-// ring of the other side's 64-row tiles in flight by TMA, refilling a
-// stage once both warpgroups have released it. Only the walk differs:
-// step i of the ring is the i-th 64-row tile of the listed blocks, in
-// list order, a listed block of blk_other rows being blk_other / 64
-// tiles. Block sizes are 128-multiples, so a block's 128 rows lie in one
+// steps shared through attention_wgmma.cuh, where the forward,
+// bsa_fwd_wgmma_kernel, walks the q-major lists as dQ does): a block owns
+// 128 rows of its side, two consumer warpgroups of 64, 256 threads; one
+// thread keeps a ring of the other side's 64-row tiles in flight by TMA,
+// refilling a stage once both warpgroups have released it. Only the walk
+// differs: step i of the ring is the i-th 64-row tile of the listed
+// blocks, in list order, a listed block of blk_other rows being
+// blk_other / 64 tiles. Block sizes are 128-multiples, so a block's 128 rows lie in one
 // logical block, and BlockMask's lists ascend: under causal the tiles
 // wholly above the block's diagonal are a prefix (dK/dV) or a suffix (dQ)
 // of the walk, which is cut to the rest before anything is loaded.
@@ -236,18 +203,9 @@ bsa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // entries against a mean of about 7 at S = 4096), so a heavy block that
 // starts last sets the tail. L.order lists the own side's logical blocks
 // by list length, longest first (BlockMask computes it once a pattern);
-// the grid's y walks it, every batch-head's blocks of one logical block
-// side by side on x. No atomics: dK/dV keeps the reference's split from
-// dQ and its result is deterministic.
-
-// The heaviest-first logical block a thread block works on, and its
-// first row: blockIdx.y walks L.order, L.blk_own / kWgBlock thread blocks
-// a logical block.
-__device__ __forceinline__ int wg_block_row(const BlockList& L, int& blk) {
-  const int per = L.blk_own / kWgBlock;
-  blk = L.order[blockIdx.y / per];
-  return blk * L.blk_own + (blockIdx.y % per) * kWgBlock;
-}
+// the grid's y walks it (wg_block_row), every batch-head's blocks of one
+// logical block side by side on x. No atomics: dK/dV keeps the
+// reference's split from dQ and its result is deterministic.
 
 template <int D>
 __global__ void __launch_bounds__(kConsumerThreads, 1)
@@ -539,21 +497,15 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The bf16 forward: bsa_fwd_wgmma_kernel (attention_wgmma.cuh) over the
+// lists, with no dropout (the reference's block-sparse kernels have none).
 template <int D>
-cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v,
-                           void* out, void* lse, BlockList L, int bh, int sq,
-                           int sk, int causal, float scale,
-                           cudaStream_t st) {
-  auto kernel = bsa_fwd_mma_kernel<D>;
-  cudaError_t err = set_smem(kernel, fwd_smem_mma<D>());
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(sq / kTile, bh), kThreadsMma, fwd_smem_mma<D>(), st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), L, sq, sk,
-      causal, scale);
-  return cudaGetLastError();
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
+                             void* out, void* lse, BlockList L, int bh,
+                             int sq, int sk, int causal, float scale,
+                             cudaStream_t st) {
+  return launch_bsa_fwd_wgmma<D>(q, k, v, out, lse, L, bh, sq, sk, causal,
+                                 scale, Dropout{}, st);
 }
 
 // Block sizes must be whole 64-row tiles and tile both sequences; the
@@ -624,7 +576,8 @@ BlockList make_list(const void* idx, const void* count, const void* order,
 // Dispatch on (dtype, padded head dim): dtype 0 = float32 runs the FMA
 // kernels (FP32), 1 = bfloat16 the tensor-core kernels (BF16), at
 // head_dim 64 or 128; head_dim 192..512 (multiples of 64) runs the wide
-// kernels (WIDE, wide_attention.cuh) in either dtype. The arguments are
+// kernels (WIDE, wide_attention.cuh) in either dtype, except the bf16
+// forward at 192 and 256 (bsa_fwd_launch). The arguments are
 // the kernels' up to sq, sk; causal, scale and the stream follow (with
 // head_dim before them for WIDE). Everything else is refused with
 // cudaErrorInvalidValue before any launch.
@@ -656,15 +609,21 @@ extern "C" {
 // blocks by list length, longest first (the wgmma kernels' launch order).
 int bsa_fwd_launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, const void* cols, const void* counts,
-                   int a_max, int bh, int sq, int sk, int head_dim,
-                   int blk_q, int blk_k, int causal, float scale, int dtype,
-                   void* stream) {
+                   const void* order_q, int a_max, int bh, int sq, int sk,
+                   int head_dim, int blk_q, int blk_k, int causal,
+                   float scale, int dtype, void* stream) {
   if (bad_geometry(bh, sq, sk, blk_q, blk_k, a_max))
     return (int)cudaErrorInvalidValue;
-  const BlockList L =
-      make_list(cols, counts, nullptr, a_max, blk_q, blk_k);
+  const BlockList L = make_list(cols, counts, order_q, a_max, blk_q, blk_k);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  BSA_DISPATCH(launch_fwd, launch_fwd_mma, launch_wide_fwd, q, k, v, out,
+  // bf16 at padded D 192 and 256 runs the wgmma forward too
+  if (dtype == 1 && head_dim == 192)
+    return (int)launch_fwd_wgmma<192>(q, k, v, out, lse, L, bh, sq, sk,
+                                      causal, scale, st);
+  if (dtype == 1 && head_dim == 256)
+    return (int)launch_fwd_wgmma<256>(q, k, v, out, lse, L, bh, sq, sk,
+                                      causal, scale, st);
+  BSA_DISPATCH(launch_fwd, launch_fwd_wgmma, launch_wide_fwd, q, k, v, out,
                lse, L, bh, sq, sk);
 }
 

@@ -1,12 +1,15 @@
 // Flash attention for Hopper (sm_90a), written by hand: forward, dQ and
 // dK/dV, on [BH, S, D] tensors (D padded to a multiple of 64 up to 512 by
-// the wrapper; D 192..512 run the wide kernels of wide_attention.cuh).
+// the wrapper; D 192..512 run the wide kernels of wide_attention.cuh, but
+// for the bf16 forward at 192 and 256).
 //
 // Replaces the three Pallas TPU kernels of
 // paddle_tpu/ops/pallas/flash_attention.py:
 //   fa_fwd_kernel, fa_fwd_wgmma_kernel  <- _fa_fwd_kernel (:162, call :230)
 //   fa_dq_kernel, fa_dq_wgmma_kernel    <- _fa_dq_kernel  (:277, call :380)
 //   fa_dkv_kernel, fa_dkv_wgmma_kernel  <- _fa_dkv_kernel (:316, call :397)
+// and, in bf16 at padded D 192 and 256, the forward of
+// attention_wgmma.cuh (bsa_fwd_wgmma_kernel, over a dense walk).
 // Each computes what its TPU kernel computes; none is carried over block
 // by block. The TPU grids walk the inner tile loop in order and carry
 // (m, l, acc) or the dq / dk,dv sums in VMEM scratch across grid steps; on
@@ -58,8 +61,8 @@
 //         operand is read as scalars at a stride of 1 or an odd stride
 //         (D + 1).
 // The FMA tile steps (and the helpers above them) live in
-// attention_tiles.cuh, the bf16 backward's wgmma tile steps in
-// attention_wgmma.cuh, both shared with the block-sparse kernels.
+// attention_tiles.cuh, the bf16 wgmma tile steps in attention_wgmma.cuh,
+// both shared with the block-sparse kernels.
 
 #include "attention_wgmma.cuh"
 #include "wide_attention.cuh"
@@ -231,79 +234,6 @@ template <int D>
 constexpr size_t fwd_wgmma_smem() {
   return 1024 + tile_bytes<D>(kWgBlock) +
          2 * kFwdStages * tile_bytes<D>(kTile) + (1 + 2 * kFwdStages) * 8;
-}
-
-// One kv tile (K at k_base, V at v_base, 64 rows each) against the
-// warpgroup's 64 q rows (at q_base in the block's 128-row Q tile): the
-// online softmax of fwd_tile_mma, with S = Q K^T and O += P V as wgmma.
-template <int D>
-__device__ __forceinline__ void fwd_tile_wgmma(
-    float (&o)[D / 8][4], float (&m)[2], float (&l)[2], uint32_t q_base,
-    uint32_t k_base, uint32_t v_base, const int (&rows)[2], int c0,
-    bool mask, int offset, float scale, const Dropout& drop, uint32_t key) {
-  const int tig = threadIdx.x % 4;
-  float s[kTile / 8][4] = {};
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<kTile>(s, kmajor_desc(q_base, kk, kWgBlock),
-                    kmajor_desc(k_base, kk, kTile), kk > 0);
-  wg_commit();
-  wg_wait<0>();
-  wg_fence_regs(s);
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = c0 + j * 8 + 2 * tig + (e & 1);
-      float x = s[j][e] * scale;
-      if (mask && rows[e >> 1] + offset < col) x = -INFINITY;
-      s[j][e] = x;
-      mx[e >> 1] = fmaxf(mx[e >> 1], x);
-    }
-  // exp(x - m) as exp2(x log2(e) - m log2(e)): one FFMA and one MUFU op
-  float alpha[2], m_log2[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float m_new = fmaxf(m[h], quad_max(mx[h]));
-    const float m_use = safe_max(m_new);
-    m_log2[h] = m_use * kLog2e;
-    alpha[h] = exp2f((m[h] - m_use) * kLog2e);  // exactly 1 if m is kept
-    m[h] = m_new;
-  }
-#pragma unroll
-  for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = exp2f(fmaf(s[j][e], kLog2e, -m_log2[e >> 1]));
-      rs[e >> 1] += p;
-      float pd = p;
-      if (drop.on) {
-        const uint32_t bits = dropout_bits(key, rows[e >> 1],
-                                           c0 + j * 8 + 2 * tig + (e & 1));
-        pd = bits >= drop.threshold ? p / drop.keep_div : 0.f;
-      }
-      s[j][e] = pd;
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + quad_sum(rs[h]);
-  // the running max moves less and less along a row: rescale only when a
-  // row of the warp has a new one
-  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f))
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
-  uint32_t pa[kTile / 16][4];
-  to_a_frags<kTile / 8>(pa, s);  // p rounded to bf16, as the reference
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk)
-    wgmma_rs_t<D>(o, pa[kk], mnmajor_desc(v_base, kk, kTile));
-  wg_commit();
-  wg_wait<0>();
-  wg_fence_regs(o);
 }
 
 template <int D>
@@ -797,8 +727,10 @@ Dropout make_dropout(unsigned seed, unsigned threshold, float keep_div,
 // Dispatch on (dtype, padded head dim): dtype 0 = float32 runs the FMA
 // kernels (FP32), 1 = bfloat16 the tensor-core kernels (BF16), at head_dim
 // 64 or 128; head_dim 192..512 (multiples of 64) runs the wide kernels
-// (WIDE) in either dtype, over a dense walk. Everything else is refused
-// with cudaErrorInvalidValue before any launch.
+// (WIDE) in either dtype, over a dense walk, except the bf16 forward at
+// 192 and 256 (attention_wgmma.cuh bsa_fwd_wgmma_kernel, fa_fwd_launch).
+// Everything else is refused with cudaErrorInvalidValue before any
+// launch.
 #define FA_DISPATCH(FP32, BF16, WIDE, WALK, ...)                           \
   do {                                                                     \
     if (dtype == 0 && head_dim == 64)                                      \
@@ -826,6 +758,13 @@ int fa_fwd_launch(const void* q, const void* k, const void* v, void* out,
   const Dropout drop =
       make_dropout(seed, threshold, keep_div, keep_inv, dropout_on);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // bf16 at padded D 192 and 256: the wgmma forward over the dense walk
+  if (dtype == 1 && head_dim == 192)
+    return (int)launch_bsa_fwd_wgmma<192>(q, k, v, out, lse, dense_list(sk),
+                                          bh, sq, sk, causal, scale, drop, st);
+  if (dtype == 1 && head_dim == 256)
+    return (int)launch_bsa_fwd_wgmma<256>(q, k, v, out, lse, dense_list(sk),
+                                          bh, sq, sk, causal, scale, drop, st);
   FA_DISPATCH(launch_fwd, launch_fwd_wgmma, launch_wide_fwd,
               (q, k, v, out, lse, dense_list(sk), bh, sq, sk, head_dim,
                causal, scale, drop, st),

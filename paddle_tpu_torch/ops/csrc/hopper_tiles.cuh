@@ -20,7 +20,7 @@
 // d[j][2 h + e] = (row 16 w + l / 4 + 8 h, column 8 j + 2 (l % 4) + e).
 // That is mma.sync's m16n8 layout repeated over N / 8 chunks, so two
 // neighbouring chunks re-pack into the bf16 A fragment of one 16-deep
-// step (to_a_frags in attention_tiles.cuh) with no data movement.
+// step (to_a_frags in attention_wgmma.cuh) with no data movement.
 #pragma once
 
 #include <cuda.h>
@@ -241,37 +241,70 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[8][4], uint64_t da,
 }
 
 // d (64 x N) += A . B, A [64 x 16] bf16 fragments in registers (a), B
-// [16 x N] in shared memory, MN-major (transpose bit set).
+// [16 x N] in shared memory, MN-major (transpose bit set). N 192 and 256
+// issue the N = 128 form on the first two column blocks and the N = 64 or
+// 128 form on the rest, from the descriptor moved two column blocks on.
 template <int N>
 __device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 8][4],
                                            const uint32_t (&a)[4],
                                            uint64_t db);
 
+// An MN-major descriptor moved `blocks` column blocks on: they lie LBO
+// bytes apart, and the address field counts 16 bytes as LBO's does.
+__device__ __forceinline__ uint64_t desc_cols_on(uint64_t db, int blocks) {
+  return db + (uint64_t)blocks * ((db >> 16) & 0x3FFF);
+}
+
+// the m64n64k16 / m64n128k16 register-A forms on d[j0 ..]
+#define WG_RS_T64(d, j0, a, db)                                            \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32       \
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                      \
+      : WG_F8(d, j0), WG_F8(d, j0 + 2), WG_F8(d, j0 + 4), WG_F8(d, j0 + 6) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define WG_RS_T128(d, j0, a, db)                                           \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64      \
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                      \
+      : WG_F8(d, j0), WG_F8(d, j0 + 2), WG_F8(d, j0 + 4), WG_F8(d, j0 + 6), \
+        WG_F8(d, j0 + 8), WG_F8(d, j0 + 10), WG_F8(d, j0 + 12),            \
+        WG_F8(d, j0 + 14)                                                  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
 template <>
 __device__ __forceinline__ void wgmma_rs_t<64>(float (&d)[8][4],
                                                const uint32_t (&a)[4],
                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_F8(d, 0), WG_F8(d, 2), WG_F8(d, 4), WG_F8(d, 6)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  WG_RS_T64(d, 0, a, db);
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs_t<128>(float (&d)[16][4],
                                                 const uint32_t (&a)[4],
                                                 uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_F8(d, 0), WG_F8(d, 2), WG_F8(d, 4), WG_F8(d, 6), WG_F8(d, 8),
-        WG_F8(d, 10), WG_F8(d, 12), WG_F8(d, 14)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  WG_RS_T128(d, 0, a, db);
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs_t<192>(float (&d)[24][4],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  WG_RS_T128(d, 0, a, db);
+  WG_RS_T64(d, 16, a, desc_cols_on(db, 2));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_t<256>(float (&d)[32][4],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  WG_RS_T128(d, 0, a, db);
+  WG_RS_T128(d, 16, a, desc_cols_on(db, 2));
+}
+
+#undef WG_RS_T64
+#undef WG_RS_T128
 #undef WG_F8
 #undef WG_D32
 #undef WG_D64

@@ -169,19 +169,26 @@ def flash_dkv_torch(q, k, v, do, lse, delta, causal: bool, scale: float,
 
 # ------------------------------------------------------------ the kernels
 
+def set_signatures(lib) -> None:
+    """The C entries' argument and result types on ``lib``: tensors, then
+    bh, sq, sk, head_dim, causal, scale, the dropout arguments, dtype,
+    stream."""
+    p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_uint32)
+    tail = [i, f, u, u, f, f, i, i, p]  # causal .. dtype, stream
+    lib.fa_fwd_launch.argtypes = [p] * 5 + [i] * 4 + tail
+    lib.fa_dq_launch.argtypes = [p] * 7 + [i] * 4 + tail
+    lib.fa_dkv_launch.argtypes = [p] * 8 + [i] * 4 + tail
+    for fn in (lib.fa_fwd_launch, lib.fa_dq_launch, lib.fa_dkv_launch):
+        fn.restype = ctypes.c_int
+    lib.fa_error_string.argtypes = [i]
+    lib.fa_error_string.restype = ctypes.c_char_p
+
+
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     if lib.fa_fwd_launch.argtypes is None:
-        p, i, f, u = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_uint32)
-        tail = [i, f, u, u, f, f, i, i, p]  # causal .. dtype, stream
-        lib.fa_fwd_launch.argtypes = [p] * 5 + [i] * 4 + tail
-        lib.fa_dq_launch.argtypes = [p] * 7 + [i] * 4 + tail
-        lib.fa_dkv_launch.argtypes = [p] * 8 + [i] * 4 + tail
-        for fn in (lib.fa_fwd_launch, lib.fa_dq_launch, lib.fa_dkv_launch):
-            fn.restype = ctypes.c_int
-        lib.fa_error_string.argtypes = [i]
-        lib.fa_error_string.restype = ctypes.c_char_p
+        set_signatures(lib)
     return lib
 
 

@@ -9,7 +9,11 @@ Outputs and q/k/v gradients agree within 2e-5 (fp32; the two sides sum in
 different orders). The CUDA kernels themselves are held against the plain
 versions on the card (tests/test_torch_cuda_kernels.py).
 """
+import contextlib
+import ctypes
 import importlib
+import re
+import types
 
 import numpy as np
 import pytest
@@ -62,9 +66,11 @@ BLOCK_CASES = [
     # blk_q 256, blk_k 128: one q block spans two kernel tiles of kv
     (1, 512, 2, 32, np.array([[1, 1, 0, 0], [1, 0, 1, 1]], bool), True),
     (1, 512, 1, 128, np.array([[1, 0, 0, 1], [0, 1, 1, 0]], bool), False),
-    # head dims past 128: the card runs its wide kernels
+    # head dims past 128: the card runs its bf16 forward on wgmma at 192
+    # and 256, the rest on its wide kernels
     (1, 256, 2, 192, M_LG, False),
     (1, 512, 1, 256, np.array([[1, 1, 0, 0], [1, 0, 1, 1]], bool), True),
+    (1, 512, 1, 256, np.array([[1, 1, 0, 0], [1, 0, 1, 1]], bool), False),
 ]
 
 
@@ -202,6 +208,74 @@ def test_kernel_route_raises_without_a_card():
     x = torch.zeros(2, 256, 64)
     with pytest.raises(ValueError, match="CUDA"):
         bsa.bsa_fwd(x, x, x, spec, False, 0.125, impl="cuda")
+
+
+C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+           "int": ctypes.c_int, "float": ctypes.c_float,
+           "unsigned": ctypes.c_uint32}
+
+
+def c_params(source: str, entry: str):
+    """(type, name) of each parameter of the C entry ``entry`` in
+    ``csrc/<source>.cu``."""
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    decl = re.search(r"\bint " + entry + r"\((.*?)\)\s*\{", text, re.S)
+    params = []
+    for arg in decl.group(1).split(","):
+        typ, name = " ".join(arg.split()).rsplit(" ", 1)
+        params.append((typ, name))
+    return params
+
+
+@pytest.mark.parametrize("entry", ["bsa_fwd_launch", "bsa_dq_launch",
+                                   "bsa_dkv_launch"])
+def test_signatures_match_the_c_entries(entry):
+    """The ctypes signature the wrapper sets is the C entry's, slot by
+    slot: a pointer where the entry takes one, an int or a float where it
+    takes that."""
+    lib = types.SimpleNamespace(**{
+        name: types.SimpleNamespace(argtypes=None, restype=None)
+        for name in ("bsa_fwd_launch", "bsa_dq_launch", "bsa_dkv_launch",
+                     "bsa_error_string")})
+    bsa.set_signatures(lib)
+    params = c_params("block_sparse_attention", entry)
+    assert getattr(lib, entry).argtypes == [C_TYPES[t] for t, _ in params]
+    assert getattr(lib, entry).restype is ctypes.c_int
+
+
+def test_forward_launcher_passes_the_launch_order(monkeypatch):
+    """bsa_fwd hands the C entry the q-major lists and their launch order
+    (order_q, which the wgmma forward's grid walks) in the slots the entry
+    names them, and the geometry after them: a stub library records the
+    call."""
+    calls = []
+    stub = types.SimpleNamespace(
+        bsa_fwd_launch=lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(bsa, "_kernel_lib", lambda: stub)
+    monkeypatch.setattr(bsa, "_check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=77))
+    mask = bsa.local_global_mask(4, 2, window=0, global_blocks=1)
+    mask[3, :] = True  # q block 3 has the longest list
+    spec = bsa.block_mask_spec(mask, 512, 512, False)
+    q, k, v = (torch.zeros(3, 512, 128, dtype=torch.bfloat16)
+               for _ in range(3))
+    bsa.bsa_fwd(q, k, v, spec, False, 0.25, impl="cuda")
+    _build.reset_launches()
+    (args,) = calls
+    names = [name for _, name in c_params("block_sparse_attention",
+                                          "bsa_fwd_launch")]
+    got = dict(zip(names, args, strict=True))
+    cols, counts, order_q = spec.lists(torch.device("cpu"))[:3]
+    assert order_q.tolist()[0] == 3
+    assert [got[n] for n in ("q", "k", "v", "cols", "counts", "order_q")] \
+        == [t.data_ptr() for t in (q, k, v, cols, counts, order_q)]
+    assert [got[n] for n in ("a_max", "bh", "sq", "sk", "head_dim", "blk_q",
+                             "blk_k", "causal", "scale", "dtype",
+                             "stream")] == [
+        cols.shape[1], 3, 512, 512, 128, 128, 256, 0, 0.25, 1, 77]
 
 
 # ----------------------------------------------- the functional, end to end

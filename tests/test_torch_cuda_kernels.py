@@ -552,8 +552,11 @@ FLASH_CASES = [
     (1, 192, 320, 128, False, 0.5),   # 64-multiples the gate would refuse
     (1, 192, 320, 128, True, 0.0),    # causal, odd count of 64-row tiles
     (1, 2048, 2048, 128, True, 0.0),  # the K/V ring wraps many times
-    # padded head dims past 128: the wide kernels
+    # padded head dims past 128: the bf16 forward at 192 and 256 on
+    # bsa_fwd_wgmma_kernel's dense walk, the rest on the wide kernels
     (2, 256, 256, 192, True, 0.0),
+    (2, 512, 512, 256, True, 0.0),
+    (1, 192, 320, 256, True, 0.3),    # dropout, offset 128, odd tile count
     (1, 128, 384, 320, True, 0.3),    # causal offset 256, dropout
     (1, 256, 128, 512, False, 0.0),   # sq > sk
     (1, 192, 320, 512, True, 0.2),    # causal dropout, offset 128
@@ -669,7 +672,11 @@ MUTATIONS = {
 
 def _mutated_source(kernel: str, loop: str, broken: str,
                     source: str = "flash_attention") -> str:
-    src = (_build.CSRC / f"{source}.cu").read_text()
+    """``csrc/<source>.cu`` (or the file ``source`` names with its
+    suffix) with the first ``loop`` after ``kernel``'s definition
+    replaced by ``broken``."""
+    name = source if "." in source else f"{source}.cu"
+    src = (_build.CSRC / name).read_text()
     at = src.index(loop, src.index(kernel + "("))
     return src[:at] + broken + src[at + len(loop):]
 
@@ -794,7 +801,8 @@ def _route_grads(call, leaves, impl, monkeypatch):
 def test_sdpa_runs_the_wide_kernels_at_head_dim_200(card, dtype,
                                                     monkeypatch):
     """``scaled_dot_product_attention`` at D 200 (padded to 256) takes the
-    flash route, launches each wide kernel once, and agrees with the same
+    flash route, launches each kernel once (the wide kernels; in bf16 the
+    forward is bsa_fwd_wgmma_kernel's), and agrees with the same
     route on the plain versions, forward and q/k/v gradients; and the
     plain flash route with the dense composition (fp32)."""
     from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
@@ -824,8 +832,9 @@ def test_sdpa_runs_the_wide_kernels_at_head_dim_200(card, dtype,
 def test_sparse_attention_runs_the_wide_kernels_at_head_dim_256(
         card, dtype, monkeypatch):
     """``sparse_attention``'s block route at D 256 (a BigBird-like CSR at
-    128-token blocks, T 1024) launches each wide block-sparse kernel once
-    and agrees with the same route on the plain versions, forward and
+    128-token blocks, T 1024) launches each block-sparse kernel once (the
+    wide kernels; in bf16 the forward is bsa_fwd_wgmma_kernel) and
+    agrees with the same route on the plain versions, forward and
     q/k/v gradients, and with the dense masked composition (fp32)."""
     from paddle_tpu_torch.nn.functional import attention as att
     from paddle_tpu_torch.nn.functional import sparse_attention
@@ -879,11 +888,16 @@ BSA_CASES = [
     (2, 1024, 1024, 128, 512, 256, False, 2),
     (1, 512, 1024, 64, 256, 512, True, None),  # causal offset 512
     (1, 1024, 768, 128, 512, 256, True, None),  # sq > sk: rows see none
-    # the bf16 dQ and dK/dV on wgmma: 128-row blocks of 256-row lists
+    # the bf16 kernels on wgmma: 128-row blocks of 256-row lists
     (2, 1024, 1024, 64, 256, 256, True, 1),
     (2, 2048, 1024, 128, 128, 512, False, 1),
-    # padded head dims past 128: the wide kernels
+    # padded head dims past 128: the bf16 forward at 192 and 256 on
+    # bsa_fwd_wgmma_kernel, the rest on the wide kernels
     (2, 512, 512, 192, 128, 128, True, 1),
+    (1, 1024, 1024, 192, 256, 128, True, 2),   # rows that see no column
+    (2, 1024, 1024, 256, 128, 256, False, 2),
+    (1, 1024, 1024, 256, 256, 128, True, None),  # rows that see no column
+    (1, 512, 1024, 256, 256, 512, True, None),  # causal offset 512
     (1, 1024, 1024, 320, 256, 128, True, None),  # rows that see no column
     (1, 512, 1024, 512, 256, 512, False, 0),
 ]
@@ -1031,21 +1045,42 @@ def test_block_sparse_backward_on_a_global_heavy_pattern(card, d, causal):
 
 
 # each bf16 block-sparse kernel with the first entry of every list of two
-# or more left out: kind -> (kernel, a line of its loop, the line broken).
-# The wgmma kernels' consumers leave the entry's tiles out; the ring's
-# loads and releases go on.
+# or more left out: kind -> (the file, its kernel, a line of the kernel's
+# loop, the line broken). The consumers leave the entry's tiles out; the
+# ring's loads and releases go on.
 BSA_MUTATIONS = {
-    "fwd": ("bsa_fwd_mma_kernel", "for (int a = 0; a < n; ++a) {",
-            "for (int a = (n > 1); a < n; ++a) {"),
-    "dq": ("bsa_dq_wgmma_kernel",
+    "fwd": ("attention_wgmma.cuh", "bsa_fwd_wgmma_kernel",
+            "if (live && !(causal && c0 > row0 + kWgRows - 1 + offset))",
+            "if (live && (t >= per_entry || n == 1) "
+            "&& !(causal && c0 > row0 + kWgRows - 1 + offset))"),
+    "dq": ("block_sparse_attention.cu", "bsa_dq_wgmma_kernel",
            "if (!(causal && c0 > row0 + kWgRows - 1 + offset))",
            "if ((t >= per_entry || n == 1) "
            "&& !(causal && c0 > row0 + kWgRows - 1 + offset))"),
-    "dkv": ("bsa_dkv_wgmma_kernel",
+    "dkv": ("block_sparse_attention.cu", "bsa_dkv_wgmma_kernel",
             "if (!(causal && r0 + kTile - 1 + offset < col0))",
             "if ((first + i >= per_entry || n == 1) "
             "&& !(causal && r0 + kTile - 1 + offset < col0))"),
 }
+
+
+def _build_mutant(kind: str, out_dir):
+    """block_sparse_attention.cu built in its own directory beside the
+    mutated file (a header there is the one its quoted include finds):
+    returns (library, nvcc process)."""
+    import shutil
+    import subprocess
+
+    file, kernel, loop, broken = BSA_MUTATIONS[kind]
+    out_dir.mkdir()
+    (out_dir / file).write_text(_mutated_source(kernel, loop, broken, file))
+    src = out_dir / "block_sparse_attention.cu"
+    if not src.exists():
+        shutil.copy(_build.CSRC / "block_sparse_attention.cu", src)
+    lib = out_dir / "libbsa.so"
+    return lib, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
 
 
 def test_block_sparse_limit_rejects_a_kernel_that_skips_a_block(
@@ -1054,9 +1089,9 @@ def test_block_sparse_limit_rejects_a_kernel_that_skips_a_block(
     tensor-core forward, dQ and dK/dV are each rebuilt with the first
     entry of every list of two or more left out, and at the sparse path's
     shapes (BH 32, S 4096, D 128, BigBird's pattern) each result must miss
-    REL_TOL, while the right kernel meets it. Prints both readings."""
+    REL_TOL, while the right kernel meets it; the forward also at D 256
+    (BH 8, S 2048). Prints both readings."""
     import ctypes
-    import subprocess
 
     from paddle_tpu_torch.ops.block_sparse_attention import (
         block_mask_spec, bsa_dkv, bsa_dq, bsa_fwd)
@@ -1067,35 +1102,101 @@ def test_block_sparse_limit_rejects_a_kernel_that_skips_a_block(
     args = (spec, False, 1.0 / 128 ** 0.5)
     out, lse = bsa_fwd(q, k, v, *args, impl="torch")
     delta = (do.float() * out.float()).sum(-1)
+    spec_w = block_mask_spec(bigbird_like(16, seed=1), 2048, 2048, False)
+    wide = flash_inputs(8, 2048, 2048, 256, torch.bfloat16, card, seed=22)
+    args_w = (spec_w, False, 1.0 / 256 ** 0.5)
     run = {
         "fwd": lambda **kw: bsa_fwd(q, k, v, *args, **kw)[0],
+        "fwd_d256": lambda **kw: bsa_fwd(*wide[:3], *args_w, **kw)[0],
         "dq": lambda **kw: bsa_dq(q, k, v, do, lse, delta, *args, **kw),
         "dkv": lambda **kw: torch.cat(bsa_dkv(q, k, v, do, lse, delta,
                                               *args, **kw)),
     }
-    want = {kind: fn(impl="torch") for kind, fn in run.items()}
-    right = {kind: rel_err(fn(), want[kind]) for kind, fn in run.items()}
-    procs = {}
-    for kind, (kernel, loop, broken) in BSA_MUTATIONS.items():
-        src = tmp_path / f"bsa_{kind}.cu"
-        src.write_text(_mutated_source(kernel, loop, broken,
-                                       "block_sparse_attention"))
-        lib = tmp_path / f"libbsa_{kind}.so"
-        procs[kind] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    broken_err = {}
+    lib_of = {"fwd": "fwd", "fwd_d256": "fwd", "dq": "dq", "dkv": "dkv"}
+    want = {case: fn(impl="torch") for case, fn in run.items()}
+    right = {case: rel_err(fn(), want[case]) for case, fn in run.items()}
+    procs = {kind: _build_mutant(kind, tmp_path / kind)
+             for kind in BSA_MUTATIONS}
+    libs = {}
     for kind, (lib, proc) in procs.items():
         out_ = proc.communicate()[0]
         assert proc.returncode == 0, out_.decode()[-2000:]
+        libs[kind] = ctypes.CDLL(str(lib))
+    broken_err = {}
+    for case, fn in run.items():
         monkeypatch.setitem(_build._LIBS, "block_sparse_attention",
-                            ctypes.CDLL(str(lib)))
-        broken_err[kind] = rel_err(run[kind](), want[kind])
+                            libs[lib_of[case]])
+        broken_err[case] = rel_err(fn(), want[case])
     print(f"block-sparse bf16 rel err, right kernels: {right}; kernels "
           f"missing a list entry: {broken_err}; limit "
           f"{REL_TOL[torch.bfloat16]}")
-    for kind in BSA_MUTATIONS:
-        assert right[kind] <= REL_TOL[torch.bfloat16] < broken_err[kind]
+    for case in run:
+        assert right[case] <= REL_TOL[torch.bfloat16] < broken_err[case]
+
+
+def _device_kernels(call):
+    """The device kernels one ``call()`` ran, by name (profiler)."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def _ran(kernel: str, names) -> bool:
+    # demangled (kernel<...>(...)) or mangled (kernelI...) names
+    return any(kernel + c in n for n in names for c in "<I(")
+
+
+@pytest.mark.parametrize("family", ["flash", "sparse"])
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.bfloat16, 192),
+    (torch.bfloat16, 256), (torch.bfloat16, 320), (torch.bfloat16, 512),
+    (torch.float32, 128), (torch.float32, 256)])
+def test_forward_dispatch_takes_the_wgmma_list_kernel(card, family, dtype,
+                                                       d):
+    """The forward's dispatch: bsa_fwd_wgmma_kernel runs the bf16
+    block-sparse forward at padded D 64..256 and the bf16 flash forward at
+    192 and 256; fa_fwd_wgmma_kernel the bf16 flash forward at 64 and
+    128; bf16 at 320 and 512 and fp32 at every D stay on their kernels
+    (wide_fwd_kernel past 128). One launch, counted, within the limits."""
+    from paddle_tpu_torch.ops.block_sparse_attention import (
+        KERNEL_NAMES as BSA_NAMES, bsa_fwd)
+    from paddle_tpu_torch.ops.flash_attention import (
+        KERNEL_NAMES as FA_NAMES, flash_fwd)
+
+    if family == "flash":
+        q, k, v, _ = flash_inputs(2, 256, 256, d, dtype, card, seed=d)
+        args = (True, d ** -0.5, 0.0, 0)
+        fwd, name = flash_fwd, FA_NAMES[0]
+    else:
+        spec, q, k, v, _ = bsa_case(2, 512, 512, d, 128, 128, False, None,
+                                    dtype, card)
+        args = (spec, False, d ** -0.5)
+        fwd, name = bsa_fwd, BSA_NAMES[0]
+    fwd(q, k, v, *args)  # builds and loads the kernels first
+    _build.reset_launches()
+    ran = _device_kernels(lambda: fwd(q, k, v, *args))
+    assert _build.launches() == {name: 1}
+    bf16 = dtype == torch.bfloat16
+    if bf16 and d <= 256 and (family == "sparse" or d > 128):
+        want = "bsa_fwd_wgmma_kernel"
+    elif bf16 and d <= 128:
+        want = "fa_fwd_wgmma_kernel"
+    elif d > 128:
+        want = "wide_fwd_kernel"
+    else:
+        want = "fa_fwd_kernel" if family == "flash" else "bsa_fwd_kernel"
+    assert _ran(want, ran), (want, ran)
+    assert (want == "bsa_fwd_wgmma_kernel"
+            or not _ran("bsa_fwd_wgmma_kernel", ran))
+    got, got_lse = fwd(q, k, v, *args)
+    ref, ref_lse = fwd(q, k, v, *args, impl="torch")
+    _close(got, ref, dtype)
+    _close(got_lse, ref_lse, torch.float32)
 
 
 # -------------------------------------------------------------- LayerNorm

@@ -10,7 +10,10 @@ sides sum in different orders), and the dropout keep bits are equal.
 The CUDA kernels themselves are held against the plain versions on the
 card (tests/test_torch_cuda_kernels.py).
 """
+import ctypes
 import os
+import re
+import types
 
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ import torch
 from paddle_tpu.ops.pallas import flash_attention as jax_flash
 from paddle_tpu.ops.pallas.flash_attention import supports as jax_supports
 from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops.flash_attention import (KERNEL_NAMES,
                                                   dropout_keep,
                                                   flash_attention, flash_fwd,
@@ -242,6 +246,27 @@ def test_dropout_needs_a_seed():
     x = torch.zeros(1, 128, 1, 64)
     with pytest.raises(ValueError, match="explicit seed"):
         flash_attention(x, x, x, dropout=0.1)
+
+
+@pytest.mark.parametrize("entry", ["fa_fwd_launch", "fa_dq_launch",
+                                   "fa_dkv_launch"])
+def test_signatures_match_the_c_entries(entry):
+    """The ctypes signature the wrapper sets is the C entry's in
+    ``csrc/flash_attention.cu``, slot by slot."""
+    c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+               "int": ctypes.c_int, "float": ctypes.c_float,
+               "unsigned": ctypes.c_uint32}
+    text = (_build.CSRC / "flash_attention.cu").read_text()
+    decl = re.search(r"\bint " + entry + r"\((.*?)\)\s*\{", text, re.S)
+    want = [c_types[" ".join(arg.split()).rsplit(" ", 1)[0]]
+            for arg in decl.group(1).split(",")]
+    lib = types.SimpleNamespace(**{
+        name: types.SimpleNamespace(argtypes=None, restype=None)
+        for name in ("fa_fwd_launch", "fa_dq_launch", "fa_dkv_launch",
+                     "fa_error_string")})
+    fa.set_signatures(lib)
+    assert getattr(lib, entry).argtypes == want
+    assert getattr(lib, entry).restype is ctypes.c_int
 
 
 def test_kernel_route_raises_without_a_card():
