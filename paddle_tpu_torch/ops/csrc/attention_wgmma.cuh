@@ -351,7 +351,7 @@ constexpr size_t fwd_list_wgmma_smem() {
 // thread) fits twice on an SM, which a ninth warp prevents (registers go
 // to an SM's quarters by warp): 0.13 against 0.18 ms. At D 192 and 256
 // ptxas holds a nine-warp block to 168 registers a thread, and the
-// accumulators need up to 219.
+// accumulators need over 200.
 template <int D>
 __host__ __device__ constexpr bool fwd_list_producer_warp() {
   return D == 128;
@@ -412,15 +412,16 @@ bsa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   const int offset = sk - sq;
   const int n = list_len(L, blk), per_entry = L.blk_other / kTile;
-  // kv tiles wholly above the block's diagonal (past its last row's last
-  // column) are never loaded: a suffix of the ascending walk
-  int n_t = n * per_entry;
-  if (causal) {
-    const int last_col = min(q0 + kWgBlock, sq) - 1 + offset;
-    n_t = 0;
-    for (int a = 0; a < n && list_row(L, blk, a) <= last_col; ++a)
-      n_t += min(per_entry, (last_col - list_row(L, blk, a)) / kTile + 1);
-  }
+  const int n_t = n * per_entry;
+  // Whether step t (walk w standing at it) is one of the block's tiles.
+  // Under causal the walk ends at the first tile wholly above the
+  // block's diagonal (past its last row's last column), never loaded;
+  // lists ascend, so the rest lie above it too. Each role decides this
+  // as it goes: no pass over the list comes before the first load.
+  const int last_col = min(q0 + kWgBlock, sq) - 1 + offset;
+  const auto in_walk = [&](int t, const ListWalk& w) {
+    return t < n_t && !(causal && w.col() > last_col);
+  };
   // kv tile t of the walk (at c0) into its stage: K and V
   const auto load = [&](int t, int c0) {
     const int s = t % kStages;
@@ -433,12 +434,6 @@ bsa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                   cb * 64, c0, bh);
     }
   };
-  const auto load_q = [&]() {
-    mbar_expect_tx(q_full, kQBytes);
-#pragma unroll
-    for (int cb = 0; cb < D / 64; ++cb)
-      tma_load_3d(qs + cb * kWgBlock * 128, &tm_q, q_full, cb * 64, q0, bh);
-  };
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -447,13 +442,16 @@ bsa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(&empty[s], kConsumerThreads);
     }
     mbar_fence_init();
+    mbar_expect_tx(q_full, kQBytes);
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb)
+      tma_load_3d(qs + cb * kWgBlock * 128, &tm_q, q_full, cb * 64, q0, bh);
   }
   __syncthreads();
   if (kWarp && threadIdx.x >= kConsumerThreads) {
     if (threadIdx.x == kConsumerThreads) {  // the producer warp's lane 0
-      load_q();
       ListWalk w(L, blk);
-      for (int t = 0; t < n_t; ++t, w.next()) {
+      for (int t = 0; in_walk(t, w); ++t, w.next()) {
         if (t >= kStages)
           mbar_wait(&empty[t % kStages], (t / kStages - 1) & 1);
         load(t, w.col());
@@ -465,17 +463,19 @@ bsa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // stage of each tile it releases with the tile kStages further on, once
   // both warpgroups have released it.
   ListWalk ahead(L, blk);
-  if (!kWarp && threadIdx.x == 0) {
-    load_q();
-    for (int t = 0; t < min(n_t, kStages); ++t, ahead.next())
-      load(t, ahead.col());
-  }
+  int n_ahead = 0;  // tiles thread 0 has loaded
+  if (!kWarp && threadIdx.x == 0)
+    for (; n_ahead < kStages && in_walk(n_ahead, ahead); ++n_ahead) {
+      load(n_ahead, ahead.col());
+      ahead.next();
+    }
   const auto release = [&](int t) {
     const int s = t % kStages;
     mbar_arrive(&empty[s]);
-    if (!kWarp && threadIdx.x == 0 && t + kStages < n_t) {
+    if (!kWarp && threadIdx.x == 0 && n_ahead == t + kStages &&
+        in_walk(n_ahead, ahead)) {
       mbar_wait(&empty[s], (t / kStages) & 1);
-      load(t + kStages, ahead.col());
+      load(n_ahead++, ahead.col());
       ahead.next();
     }
   };
@@ -492,7 +492,7 @@ bsa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // also with nothing to walk: the epilogue reuses the Q tile
   if (live) mbar_wait(q_full, 0);
   ListWalk w(L, blk);
-  for (int t = 0; t < n_t; ++t, w.next()) {
+  for (int t = 0; in_walk(t, w); ++t, w.next()) {
     const int st = t % kStages, c0 = w.col();
     mbar_wait(&full[st], (t / kStages) & 1);
     if (live && !(causal && c0 > row0 + kWgRows - 1 + offset))
