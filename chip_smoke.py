@@ -93,8 +93,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    copy; fp32 out and q/k/v gradients agree with the dense masked
    composition, bf16 with the plain versions on the same route.
    ``wide`` — the six flash and block-sparse entry points at padded head
-   dims 256 and 512 (bf16) and 256 (fp32), and the two forwards at bf16
-   192, against their plain versions: the kernel each case ran (the
+   dims 256 and 512 (bf16) and 256 (fp32), the two forwards at bf16 192
+   and flash's at bf16 256 with dropout, against their plain versions: the kernel each case ran (the
    profiler's name: ``bsa_fwd_wgmma_kernel`` for the bf16 forward at 192
    and 256 in both families, the wide kernels elsewhere), errors, times,
    bounds, ptxas; torch's scaled_dot_product_attention on the bf16 D 256
@@ -1507,15 +1507,17 @@ def sparse_parent(parent, calls, mask, tensors, causal, scale, timer):
                  ms=timer.median_ms(call))
 
 
-# The wide head dims' cases: (dtype, padded head dim, entry points).
-# Flash at BH 16, S 1024, causal; block-sparse at BH 8, S 2048 on
-# BigBird's pattern at 128-token blocks. Smaller than the main shapes:
-# every kernel but the bf16 forward at D <= 256 runs on the FMA units and
-# repeats the scores for each 64-column output slice.
-WIDE_CASES = ((torch.bfloat16, 192, ("fwd",)),
-              (torch.bfloat16, 256, ("fwd", "dq", "dkv")),
-              (torch.bfloat16, 512, ("fwd", "dq", "dkv")),
-              (torch.float32, 256, ("fwd", "dq", "dkv")))
+# The wide head dims' cases: (dtype, padded head dim, entry points,
+# flash's dropout rate; block-sparse attention has no dropout and skips
+# a case with one). Flash at BH 16, S 1024, causal; block-sparse at BH 8,
+# S 2048 on BigBird's pattern at 128-token blocks. Smaller than the main
+# shapes: every kernel but the bf16 forward at D <= 256 runs on the FMA
+# units and repeats the scores for each 64-column output slice.
+WIDE_CASES = ((torch.bfloat16, 192, ("fwd",), 0.0),
+              (torch.bfloat16, 256, ("fwd", "dq", "dkv"), 0.0),
+              (torch.bfloat16, 256, ("fwd",), 0.1),
+              (torch.bfloat16, 512, ("fwd", "dq", "dkv"), 0.0),
+              (torch.float32, 256, ("fwd", "dq", "dkv"), 0.0))
 WIDE_SHAPE = dict(flash_bh=16, flash_seq=1024, sparse_bh=8, sparse_seq=2048)
 
 
@@ -1551,16 +1553,16 @@ def phase_wide(device, peaks, timer, parent=None):
         theirs = {"flash": load_tree(parent, "ops.flash_attention"),
                   "sparse": load_tree(parent, "ops.block_sparse_attention")}
     results = {}
-    for dtype, d, kinds in WIDE_CASES:
+    for dtype, d, kinds, dropout in WIDE_CASES:
         scale = 1.0 / d ** 0.5
-        for fam in ("flash", "sparse"):
+        for fam in ("flash", "sparse")[:2 - bool(dropout)]:
             bh, s = sh[f"{fam}_bh"], sh[f"{fam}_seq"]
             rnd = lambda: torch.randn(bh, s, d, generator=g,
                                       device=device).to(dtype)
             q, k, v, do = rnd(), rnd(), rnd(), rnd()
             if fam == "flash":
                 causal = True
-                args = (causal, scale, 0.0, 0)
+                args = (causal, scale, dropout, 4321)
                 mod, pfx = fa, "flash"
             else:
                 causal = False
@@ -1578,7 +1580,8 @@ def phase_wide(device, peaks, timer, parent=None):
                 "dkv": lambda impl: dkv(q, k, v, do, lse, delta, *args,
                                         impl=impl),
             }
-            tag = f"{str(dtype).replace('torch.', '')}_d{d}"
+            tag = f"{str(dtype).replace('torch.', '')}_d{d}" + (
+                f"_dropout{dropout}" if dropout else "")
             for kind in kinds:
                 call = calls[kind]
                 _build.reset_launches()
@@ -1603,7 +1606,8 @@ def phase_wide(device, peaks, timer, parent=None):
                          if kernel == "bsa_fwd_wgmma_kernel" else
                          ptxas_of(reports[fam], kernel, dtype=dtype))
                 library = None
-                if kind == "fwd" and dtype == torch.bfloat16 and d == 256:
+                if (kind == "fwd" and dtype == torch.bfloat16 and d == 256
+                        and not dropout):
                     library = wide_sdpa_ms(q, k, v, args[0] if fam ==
                                            "sparse" else None, timer)
                 res = dict(family=fam, kind=kind, case=tag, kernel=kernel,
@@ -1611,7 +1615,7 @@ def phase_wide(device, peaks, timer, parent=None):
                            max_abs_err=max(e for e, _ in errs),
                            rel_err=max(r for _, r in errs), tol=TOL[dtype],
                            rel_tol=REL_TOL[dtype], bh=bh, seq=s, head_dim=d,
-                           causal=causal,
+                           causal=causal, dropout=dropout,
                            ms=timer.median_ms(lambda: call("cuda")),
                            plain_ms=timer.median_ms(lambda: call("torch")),
                            library_ms=library,
@@ -1619,7 +1623,7 @@ def phase_wide(device, peaks, timer, parent=None):
                 emit("wide", name=f"{fam}_{kind}", **res)
                 results[(fam, kind, tag)] = res
             if (theirs is not None and dtype == torch.bfloat16
-                    and d in (192, 256)):
+                    and d in (192, 256) and not dropout):
                 wide_parent(theirs[fam], fam, tag, calls["fwd"],
                             (q, k, v), args, timer)
             del q, k, v, do, out, lse, delta
