@@ -93,15 +93,18 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    copy; fp32 out and q/k/v gradients agree with the dense masked
    composition, bf16 with the plain versions on the same route.
    ``wide`` — the six flash and block-sparse entry points at padded head
-   dims 256 and 512 (bf16) and 256 (fp32), the two forwards at bf16 192
-   and flash's at bf16 256 with dropout, against their plain versions: the kernel each case ran (the
-   profiler's name: ``bsa_fwd_wgmma_kernel`` for the bf16 forward at 192
-   and 256 in both families, the wide kernels elsewhere), errors, times,
-   bounds, ptxas; torch's scaled_dot_product_attention on the bf16 D 256
-   forward's inputs (causal for flash, the expanded mask for
-   block-sparse) as its yardstick. With ``--parent DIR``,
-   ``wide_parent`` times that tree's bf16 forwards at D 192 and 256
-   beside this tree's (parent, this, this, parent).
+   dims 192, 256 and 512 (bf16) and 256 (fp32), and flash's at bf16 256
+   with dropout, against their plain versions: the kernel each case ran
+   (the profiler's name: at bf16 192 and 256 the list kernels of
+   ``attention_wgmma.cuh``, ``bsa_fwd_wgmma_kernel``,
+   ``bsa_dq_wgmma_kernel`` and ``bsa_dkv_split_wgmma_kernel``, in both
+   families; the wide kernels elsewhere), errors, times, bounds, ptxas;
+   ``wide_library``: torch's scaled_dot_product_attention on the bf16 D
+   256 inputs (causal for flash, the expanded mask for block-sparse),
+   forward and backward (dq, dk and dv in one call), and its forward at
+   D 512, each with the backend it ran, as the yardstick. With
+   ``--parent DIR``, ``wide_parent`` times that tree's bf16 entry points
+   at D 192 and 256 beside this tree's (parent, this, this, parent).
 11. ``layer_norm`` — the LayerNorm kernel against its plain version at
    [8192, 2048] and [16, 2048], fp32 and bf16, with
    ``torch.nn.functional.layer_norm`` as the yardstick; then
@@ -128,6 +131,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -1085,7 +1089,9 @@ def ptxas_of(report: str, kernel: str, head_dim=None, dtype=None):
     ``head_dim`` (mangled ``<kernel>I...Li<head_dim>E``), or of a wide
     kernel's for ``dtype`` (``<kernel>If`` for float,
     ``<kernel>I13__nv_bfloat16`` for bfloat16), read from a
-    ``_build.ptxas_report``."""
+    ``_build.ptxas_report``; the most of each over the instantiations
+    that match (flash builds the list dQ and dK/dV kernels with dropout
+    and without)."""
     found, cur = {}, False
     for line in report.splitlines():
         if "Compiling entry function" in line:
@@ -1096,12 +1102,17 @@ def ptxas_of(report: str, kernel: str, head_dim=None, dtype=None):
             else:
                 at = name.find(kernel + "I")
                 cur = at >= 0 and f"Li{head_dim}E" in name[at:]
-        elif cur and "spill stores" in line:
+            continue
+        if cur and "spill stores" in line:
             nums = [int(x) for x in line.split() if x.isdigit()]
-            found.update(spill_store_bytes=nums[1], spill_load_bytes=nums[2])
+            got = dict(spill_store_bytes=nums[1], spill_load_bytes=nums[2])
         elif cur and "Used" in line and "registers" in line:
-            found["registers"] = int(line.split("Used")[1].split()[0])
+            got = dict(registers=int(line.split("Used")[1].split()[0]))
             cur = False
+        else:
+            continue
+        for key, n in got.items():
+            found[key] = max(found.get(key, 0), n)
     return found
 
 
@@ -1511,20 +1522,27 @@ def sparse_parent(parent, calls, mask, tensors, causal, scale, timer):
 # flash's dropout rate; block-sparse attention has no dropout and skips
 # a case with one). Flash at BH 16, S 1024, causal; block-sparse at BH 8,
 # S 2048 on BigBird's pattern at 128-token blocks. Smaller than the main
-# shapes: every kernel but the bf16 forward at D <= 256 runs on the FMA
-# units and repeats the scores for each 64-column output slice.
-WIDE_CASES = ((torch.bfloat16, 192, ("fwd",), 0.0),
+# shapes: every kernel but bf16 at D <= 256 runs on the FMA units and
+# repeats the scores for each 64-column output slice.
+WIDE_CASES = ((torch.bfloat16, 192, ("fwd", "dq", "dkv"), 0.0),
               (torch.bfloat16, 256, ("fwd", "dq", "dkv"), 0.0),
-              (torch.bfloat16, 256, ("fwd",), 0.1),
+              (torch.bfloat16, 256, ("fwd", "dq", "dkv"), 0.1),
               (torch.bfloat16, 512, ("fwd", "dq", "dkv"), 0.0),
               (torch.float32, 256, ("fwd", "dq", "dkv"), 0.0))
 WIDE_SHAPE = dict(flash_bh=16, flash_seq=1024, sparse_bh=8, sparse_seq=2048)
 
 
+# the list kernel (attention_wgmma.cuh) each entry point launches in
+# bf16 at padded head dims 192 and 256, both families
+WIDE_LIST_KERNEL_OF = {"fwd": "bsa_fwd_wgmma_kernel",
+                       "dq": "bsa_dq_wgmma_kernel",
+                       "dkv": "bsa_dkv_split_wgmma_kernel"}
+
+
 def wide_kernel_of(kind: str, dtype, d: int) -> str:
     """The kernel an entry point launches at padded head dim d > 128."""
-    if kind == "fwd" and dtype == torch.bfloat16 and d <= 256:
-        return "bsa_fwd_wgmma_kernel"
+    if dtype == torch.bfloat16 and d <= 256:
+        return WIDE_LIST_KERNEL_OF[kind]
     return f"wide_{kind}_kernel"
 
 
@@ -1534,9 +1552,10 @@ def phase_wide(device, peaks, timer, parent=None):
     profiler; ``wide_kernel_of``), max abs and relative norm errors,
     median times with the L2 flushed, bytes, operations and the bound,
     ptxas registers and spills; scaled_dot_product_attention on the bf16
-    D 256 forward's inputs as the yardstick (``library_ms``). With
-    ``parent``, that tree's bf16 forwards at D 192 and 256 beside this
-    tree's (``wide_parent``)."""
+    D 256 inputs, forward (``library_ms``) and backward, and its forward
+    at D 512, as the yardstick (``wide_library``). With ``parent``, that
+    tree's bf16 entry points at D 192 and 256 beside this tree's
+    (``wide_parent``)."""
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import block_sparse_attention as bsa
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -1587,6 +1606,10 @@ def phase_wide(device, peaks, timer, parent=None):
                 _build.reset_launches()
                 got = call("cuda")
                 launches = _build.launches()
+                name = mod.KERNEL_NAMES[("fwd", "dq", "dkv").index(kind)]
+                if launches != {name: 1}:
+                    raise AssertionError(f"wide {fam} {kind} ({tag}): "
+                                         f"launches {launches}")
                 want = call("torch")
                 if torch.is_tensor(got):
                     got, want = (got,), (want,)
@@ -1603,13 +1626,15 @@ def phase_wide(device, peaks, timer, parent=None):
                 seen = check_ran(f"wide {fam} {kind} ({tag})", kernel,
                                  lambda: call("cuda"))
                 ptxas = (ptxas_of(reports[fam], kernel, d)
-                         if kernel == "bsa_fwd_wgmma_kernel" else
+                         if kernel.startswith("bsa_") else
                          ptxas_of(reports[fam], kernel, dtype=dtype))
                 library = None
-                if (kind == "fwd" and dtype == torch.bfloat16 and d == 256
-                        and not dropout):
-                    library = wide_sdpa_ms(q, k, v, args[0] if fam ==
-                                           "sparse" else None, timer)
+                if (kind == "fwd" and dtype == torch.bfloat16
+                        and d in (256, 512) and not dropout):
+                    lib = wide_sdpa(q, k, v, do, args[0] if fam == "sparse"
+                                    else None, timer, backward=d == 256)
+                    emit("wide_library", family=fam, case=tag, **lib)
+                    library = lib["sdpa_forward_ms"]
                 res = dict(family=fam, kind=kind, case=tag, kernel=kernel,
                            kernel_seen=seen, launches=launches, ptxas=ptxas,
                            max_abs_err=max(e for e, _ in errs),
@@ -1624,50 +1649,94 @@ def phase_wide(device, peaks, timer, parent=None):
                 results[(fam, kind, tag)] = res
             if (theirs is not None and dtype == torch.bfloat16
                     and d in (192, 256) and not dropout):
-                wide_parent(theirs[fam], fam, tag, calls["fwd"],
-                            (q, k, v), args, timer)
+                wide_parent(theirs[fam], fam, tag, calls,
+                            (q, k, v, do, lse, delta), args, timer)
             del q, k, v, do, out, lse, delta
             torch.cuda.empty_cache()
     return results
 
 
-def wide_sdpa_ms(q, k, v, spec, timer):
+def wide_sdpa(q, k, v, do, spec, timer, backward: bool):
     """torch's scaled_dot_product_attention on the same bf16 [BH, S, D]
     inputs (as [1, BH, S, D]): causal for flash (``spec`` None), with the
-    block mask expanded to elements for block-sparse. Timed here only;
-    the port never calls it."""
+    block mask expanded to elements for block-sparse. Its forward, and
+    with ``backward`` its backward (dq, dk and dv in one call), each the
+    median of TIME_REPS launches with the L2 flushed, as PyTorch picks
+    the backend, and the same under each backend alone
+    (``torch.nn.attention.sdpa_kernel``) or the error by which it refuses
+    the inputs: the default's time names the backend it ran, where the
+    profiler records no device window. Timed here only; the port never
+    calls it."""
     import torch.nn.functional as TF
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    qs, ks, vs = (x.unsqueeze(0) for x in (q, k, v))
-    if spec is None:
-        return timer.median_ms(lambda: TF.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True))
-    mask = (torch.from_numpy(spec.mask).to(q.device)
-            .repeat_interleave(spec.blk_q, 0)
-            .repeat_interleave(spec.blk_k, 1))
-    return timer.median_ms(lambda: TF.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask))
+    qs, ks, vs = (x.unsqueeze(0).detach().requires_grad_(backward)
+                  for x in (q, k, v))
+    kw = dict(is_causal=True)
+    if spec is not None:
+        kw = dict(attn_mask=torch.from_numpy(spec.mask).to(q.device)
+                  .repeat_interleave(spec.blk_q, 0)
+                  .repeat_interleave(spec.blk_k, 1))
+    fwd = lambda: TF.scaled_dot_product_attention(qs, ks, vs, **kw)
+
+    def times():
+        out = fwd()
+        got = dict(sdpa_forward_ms=timer.median_ms(fwd))
+        if backward:
+            got["sdpa_backward_ms"] = timer.median_ms(
+                lambda: torch.autograd.grad(out, (qs, ks, vs),
+                                            do.unsqueeze(0),
+                                            retain_graph=True))
+        return got
+
+    res = times()
+    res["backends"] = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        with sdpa_kernel(backend), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                res["backends"][backend.name] = times()
+            except RuntimeError as e:
+                res["backends"][backend.name] = "refused: " + str(e)[:160]
+    return res
 
 
-def wide_parent(mod, fam, tag, call, tensors, args, timer):
-    """The parent tree's bf16 forward (``mod``, its flash or block-sparse
-    module) and this tree's on the same inputs, timed in the order
-    parent, this, this, parent; the parent's held against this tree's
-    plain version too."""
-    q, k, v = tensors
+def wide_parent(mod, fam, tag, calls, tensors, args, timer):
+    """The parent tree's bf16 forward, dQ and dK/dV (``mod``, its flash
+    or block-sparse module) and this tree's on the same inputs, each held
+    against this tree's plain version, then timed in the order parent,
+    this, this, parent."""
+    q, k, v, do, lse, delta = tensors
     if fam == "flash":
-        theirs = lambda: mod.flash_fwd(q, k, v, *args, impl="cuda")
+        theirs_args, pfx = args, "flash"
     else:
         spec = mod.block_mask_spec(args[0].mask, q.shape[1], k.shape[1],
                                    args[1])
-        theirs = lambda: mod.bsa_fwd(q, k, v, spec, *args[1:], impl="cuda")
-    want = call("torch")
-    got = theirs()
-    agreement(f"parent wide {fam} fwd ({tag})", got[0], want[0])
-    trees = {"parent": theirs, "change": lambda: call("cuda")}
+        theirs_args, pfx = (spec, *args[1:]), "bsa"
+    theirs = {
+        "fwd": lambda: getattr(mod, f"{pfx}_fwd")(q, k, v, *theirs_args,
+                                                 impl="cuda"),
+        "dq": lambda: getattr(mod, f"{pfx}_dq")(
+            q, k, v, do, lse, delta, *theirs_args, impl="cuda"),
+        "dkv": lambda: getattr(mod, f"{pfx}_dkv")(
+            q, k, v, do, lse, delta, *theirs_args, impl="cuda"),
+    }
+    for kind, call in theirs.items():
+        got, want = call(), calls[kind]("torch")
+        if torch.is_tensor(got):
+            got, want = (got,), (want,)
+        for a, b in zip(got, want):
+            (agreement_lse if b.dtype == torch.float32 and b.dim() == 2
+             else agreement)(f"parent wide {fam} {kind} ({tag})", a, b)
+    trees = {"parent": theirs,
+             "change": {kind: (lambda c=c: c("cuda"))
+                        for kind, c in calls.items()}}
     for rnd, tree in enumerate(("parent", "change", "change", "parent")):
-        emit("wide_parent", tree=tree, round=rnd, family=fam, kind="fwd",
-             case=tag, ms=timer.median_ms(trees[tree]))
+        for kind, call in trees[tree].items():
+            emit("wide_parent", tree=tree, round=rnd, family=fam, kind=kind,
+                 case=tag, ms=timer.median_ms(call))
 
 
 def masked_sdpa_yardstick(q, k, v, do, spec, timer, batch):
@@ -2127,7 +2196,7 @@ def main() -> int:
     sparse = phase_sparse(device, peaks, timer, opts.parent)
     sparse_launches = phase_sparse_path(device, _build.launches,
                                         _build.reset_launches)
-    phase_wide(device, peaks, timer, opts.parent)
+    wide = phase_wide(device, peaks, timer, opts.parent)
     ln = phase_layer_norm(device, peaks, timer, _build.launches,
                           _build.reset_launches)
     del timer
@@ -2176,6 +2245,17 @@ def main() -> int:
                 else "block_sparse_attention.cu"),
             f"{bsa_ref}:{line}", sparse_launches[bsa_name],
             sparse[(kind, "bfloat16")], library))
+    # the list kernels at padded D 256 (the wide phase's bf16 cases)
+    for fam, ref, lines in (("flash", fa_ref, (("dq", 277), ("dkv", 316))),
+                            ("sparse", bsa_ref, (("dq", 182),
+                                                 ("dkv", 216)))):
+        for kind, line in lines:
+            res = wide[(fam, kind, "bfloat16_d256")]
+            (entry, count), = res["launches"].items()
+            entries.append(kernel_entry(
+                f"{entry}_d256", res["kernel"],
+                "paddle_tpu_torch/ops/csrc/attention_wgmma.cuh",
+                f"{ref}:{line}", count, res, None))
     res = ln["8192x2048_bfloat16"]
     entries.append(kernel_entry(
         "layer_norm_fwd", "ln_fwd_kernel",

@@ -7,12 +7,19 @@
 //                    bsa_dq_wgmma_kernel)
 //   dkv_tile_wgmma   dv += p^T dO, dk += ds^T q over one q tile
 //                    (fa_dkv_wgmma_kernel, bsa_dkv_wgmma_kernel)
-// and one kernel both families launch: bsa_fwd_wgmma_kernel, the forward
-// over a BlockList (below; block-sparse at padded D 64..256, flash at
-// 192 and 256).
+// and, below, the kernels both families launch over a BlockList:
+//   bsa_fwd_wgmma_kernel        the forward: block-sparse at padded D
+//                               64..256, flash at 192 and 256
+//   bsa_dq_wgmma_kernel         dQ: block-sparse at 64..256, flash at
+//                               192 and 256
+//   bsa_dkv_split_wgmma_kernel  dK/dV at 192 and 256, both families: a
+//                               64-row block whose two warpgroups split
+//                               the products by role (dkv_p_tile_wgmma,
+//                               dkv_ds_tile_wgmma)
 //
 // A block owns a 128-row tile (q rows in the forward and dQ, kv rows in
-// dK/dV) and is two consumer warpgroups of 64 of its rows each; the other
+// dK/dV; 64 kv rows in bsa_dkv_split_wgmma_kernel) and is two consumer
+// warpgroups of 64 of its rows each; the other
 // side's 64-row tiles stream through a ring of shared-memory stages,
 // loaded by TMA (hopper_tiles.cuh's layout contract: 128-byte swizzle,
 // column blocks of 64). Every product is wgmma: operands in shared
@@ -153,17 +160,25 @@ __device__ __forceinline__ void fwd_tile_wgmma(
   wg_fence_regs(o);
 }
 
+// A wait for nothing: dq_tile_wgmma's V is in shared memory before S.
+struct NoWait {
+  __device__ void operator()() const {}
+};
+
 // One kv tile (K at k_base, V at v_base, 64 rows each) against the
 // warpgroup's 64 q rows rows[h] (Q, dO at q_base, do_base in the block's
 // 128-row tiles; lse_l2 = lse log2(e) and delta of the rows): S = Q K^T
 // and dP = dO V^T, committed apart so that p is computed while dP runs,
-// then dq += ds K, as attention_tiles.cuh's dq_tile.
-template <int D>
+// then dq += ds K, as attention_tiles.cuh's dq_tile. wait_v() runs once S
+// is issued and before dP: a caller whose V tile comes in after its K
+// waits for it there.
+template <int D, typename WaitV = NoWait>
 __device__ __forceinline__ void dq_tile_wgmma(
     float (&dq)[D / 8][4], uint32_t q_base, uint32_t do_base,
     uint32_t k_base, uint32_t v_base, const int (&rows)[2],
     const float (&lse_l2)[2], const float (&dl)[2], int c0, bool mask,
-    int offset, float scale, const Dropout& drop, uint32_t key) {
+    int offset, float scale, const Dropout& drop, uint32_t key,
+    const WaitV& wait_v = WaitV{}) {
   const int tig = threadIdx.x % 4;
   const float scale_log2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
   float s[kTile / 8][4] = {}, dp[kTile / 8][4] = {};
@@ -173,6 +188,7 @@ __device__ __forceinline__ void dq_tile_wgmma(
     wgmma_ss<kTile>(s, kmajor_desc(q_base, kk, kWgBlock),
                     kmajor_desc(k_base, kk, kTile), kk > 0);
   wg_commit();
+  wait_v();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
     wgmma_ss<kTile>(dp, kmajor_desc(do_base, kk, kWgBlock),
@@ -549,6 +565,560 @@ cudaError_t launch_bsa_fwd_wgmma(const void* q, const void* k, const void* v,
            st>>>(
       tq, tk, tv, tout, static_cast<float*>(lse), L, sq, sk, causal, scale,
       drop);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------- dQ over a BlockList
+//
+// bsa_dq_wgmma_kernel replaces _bsa_dq_kernel
+// (paddle_tpu/ops/pallas/block_sparse_attention.py:182, pallas_call :271)
+// in bf16 at padded D 64..256, and _fa_dq_kernel
+// (paddle_tpu/ops/pallas/flash_attention.py:277, pallas_call :380) in
+// bf16 at padded D 192 and 256: p recomputed from lse, ds = p (dp_drop -
+// delta) scale, dq += ds K over a list of kv tiles (dq_tile_wgmma).
+//
+// The forward's block and walks (bsa_fwd_wgmma_kernel): 128 q rows, two
+// consumer warpgroups of 64, each with a full-D fp32 dQ accumulator (D / 8
+// x 4 registers a thread: 128 at D 256); Q and dO loaded once by TMA;
+// blocks launched heaviest list first, or in flash's dense grid. No
+// producer warp: thread 0 keeps the K/V ring in flight, refilling the
+// slots of a tile once both warpgroups have released it, one tile after
+// its own release. Under causal the kv tiles wholly above the block's
+// diagonal are a suffix of the walk, counted from the list and never
+// loaded.
+//
+// The ring: at D <= 128 kDqStages stages, each a K and a V tile under one
+// barrier pair. Past 128, Q and dO take 96 KB (D 192) or 128 KB (D 256)
+// of the 227, and a K + V stage 48 or 64 KB, so K and V are items of
+// their own, each with its barrier pair: K of kv tile t is item 2t, V item
+// 2t + 1, in slot item % slots (5 at D 192, 3 at D 256). Three slots at
+// D 256 keep the next tile's K in flight while a tile runs, and a tile's
+// V comes in while its S is computed (dq_tile_wgmma's wait_v); with two,
+// one K + V stage, both come in after the previous tile.
+//
+// The walk is chosen at compile time: kDense for flash's dense walk
+// (L.idx null; kDropout for a call with dropout), else a block-sparse
+// list, whose instantiation is the block-sparse dQ kernel as it was
+// before flash shared it (a list pointer, every row live, no dropout).
+// Checked at run time instead, the walk and the dropout held block-sparse
+// D 128 14-34% slower than that kernel on an H100.
+template <int D>
+__host__ __device__ constexpr int dq_list_items() {  // ring items a tile
+  return D <= 128 ? 1 : 2;
+}
+template <int D>
+__host__ __device__ constexpr int dq_list_slots() {
+  return D <= 128 ? kDqStages : D == 192 ? 5 : 3;
+}
+template <int D>
+constexpr size_t dq_list_wgmma_smem() {
+  return 1024 + 2 * tile_bytes<D>(kWgBlock) +
+         dq_list_slots<D>() * (3 - dq_list_items<D>()) * tile_bytes<D>(kTile) +
+         (1 + 2 * dq_list_slots<D>()) * 8;
+}
+
+template <int D, bool kDense, bool kDropout>
+__global__ void __launch_bounds__(kConsumerThreads, 1)
+bsa_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_dq,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, BlockList L, int sq,
+                    int sk, int causal, float scale, Dropout drop) {
+  constexpr int kItems = dq_list_items<D>();
+  constexpr int kSlots = dq_list_slots<D>();
+  constexpr int kQBytes = tile_bytes<D>(kWgBlock);
+  constexpr int kKvBytes = tile_bytes<D>(kTile);
+  constexpr int kSlotBytes = (3 - kItems) * kKvBytes;
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* qs = align_1024(wg_smem);
+  unsigned char* dos = qs + kQBytes;
+  unsigned char* kvs = dos + kQBytes;  // [kSlots]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kvs + kSlots * kSlotBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kSlots;
+
+  // flash's grid is the forward's: a batch-head's q blocks side by side,
+  // the last first
+  int blk = 0;
+  const int bh = kDense ? blockIdx.y : blockIdx.x;
+  const int q0 = kDense ? (gridDim.x - 1 - blockIdx.x) * kWgBlock
+                        : wg_block_row(L, blk);
+  const int* list = kDense ? nullptr : L.idx + blk * L.width;
+  const int offset = sk - sq;
+  const int n = kDense ? 1 : L.count[blk], per_entry = L.blk_other / kTile;
+  const auto entry_row = [&](int a) {
+    return kDense ? 0 : list[a] * L.blk_other;
+  };
+  // kv tiles wholly above the block's diagonal (past its last row's last
+  // column) are never loaded: a suffix of the ascending walk
+  int n_t = n * per_entry;
+  if (causal) {
+    const int last_col = min(q0 + kWgBlock, sq) - 1 + offset;
+    n_t = 0;
+    for (int a = 0; a < n && entry_row(a) <= last_col; ++a)
+      n_t += min(per_entry, (last_col - entry_row(a)) / kTile + 1);
+  }
+  const int n_items = n_t * kItems;
+  const auto col_of = [&](int t) {
+    return entry_row(t / per_entry) + (t % per_entry) * kTile;
+  };
+  // ring item j into its slot: K and V of kv tile j, or past D 128 K (j
+  // even) or V (j odd) of kv tile j / 2
+  const auto load = [&](int j) {
+    const int s = j % kSlots, c0 = col_of(j / kItems);
+    unsigned char* at = kvs + s * kSlotBytes;
+    mbar_expect_tx(&full[s], kSlotBytes);
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb) {
+      if (kItems == 2) {
+        tma_load_3d(at + cb * kTile * 128, j % 2 ? &tm_v : &tm_k, &full[s],
+                    cb * 64, c0, bh);
+      } else {
+        tma_load_3d(at + cb * kTile * 128, &tm_k, &full[s], cb * 64, c0, bh);
+        tma_load_3d(at + kKvBytes + cb * kTile * 128, &tm_v, &full[s],
+                    cb * 64, c0, bh);
+      }
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_full, 2 * kQBytes);
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb) {
+      tma_load_3d(qs + cb * kWgBlock * 128, &tm_q, q_full, cb * 64, q0, bh);
+      tma_load_3d(dos + cb * kWgBlock * 128, &tm_do, q_full, cb * 64, q0,
+                  bh);
+    }
+    for (int j = 0; j < min(n_items, kSlots); ++j) load(j);
+  }
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int g = (threadIdx.x % 32) / 4;
+  const int row0 = q0 + wg * kWgRows;
+  // flash's last block may own no second 64 rows
+  const bool live = !kDense || row0 < sq;
+  const int rows[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
+  const uint32_t q_base = smem_u32(qs) + wg * kWgRows * 128;
+  const uint32_t do_base = smem_u32(dos) + wg * kWgRows * 128;
+  if (!kDropout) drop.on = 0;  // compiled without the dropout code
+  const uint32_t key = dropout_key(drop, bh);
+  float lse_l2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  if (live)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lse_l2[h] = lse[(size_t)bh * sq + rows[h]] * kLog2e;
+      dl[h] = delta[(size_t)bh * sq + rows[h]];
+    }
+  float acc[D / 8][4] = {};
+  if (live) mbar_wait(q_full, 0);
+  for (int t = 0; t < n_t; ++t) {
+    const int c0 = col_of(t), j = t * kItems;
+    if (threadIdx.x == 0 && t > 0)
+#pragma unroll
+      for (int i = j - kItems; i < j; ++i)
+        if (i + kSlots < n_items) {
+          mbar_wait(&empty[i % kSlots], (i / kSlots) & 1);
+          load(i + kSlots);
+        }
+    const int s = j % kSlots, sv = (j + kItems - 1) % kSlots;
+    mbar_wait(&full[s], (j / kSlots) & 1);
+    const uint32_t k_base = smem_u32(kvs + s * kSlotBytes);
+    const uint32_t v_base = kItems == 2 ? smem_u32(kvs + sv * kSlotBytes)
+                                        : k_base + kKvBytes;
+    const auto wait_v = [&] {
+      if (kItems == 2) mbar_wait(&full[sv], ((j + 1) / kSlots) & 1);
+    };
+    if (live && !(causal && c0 > row0 + kWgRows - 1 + offset))
+      dq_tile_wgmma<D>(acc, q_base, do_base, k_base, v_base, rows, lse_l2,
+                       dl, c0, causal && c0 + kTile - 1 > row0 + offset,
+                       offset, scale, drop, key, wait_v);
+    else
+      wait_v();
+#pragma unroll
+    for (int i = j; i < j + kItems; ++i) mbar_arrive(&empty[i % kSlots]);
+  }
+  if (live) {
+    // dQ through the warpgroup's rows of the Q tile, which it no longer
+    // reads, and one TMA store (zeros for rows that saw no column)
+    const float one[2] = {1.f, 1.f};
+    stage_acc_bf16<D>(qs, kWgBlock, wg * kWgRows, acc, one);
+    fence_async_shared();
+    named_barrier(1 + wg, 128);
+    if (threadIdx.x % 128 == 0) {
+#pragma unroll
+      for (int cb = 0; cb < D / 64; ++cb)
+        tma_store_3d(&tm_dq, qs + (cb * kWgBlock + wg * kWgRows) * 128,
+                     cb * 64, row0, bh);
+      tma_store_drain();
+    }
+  }
+}
+
+// A block-sparse list (block sizes 128-multiples that tile both
+// sequences, L.order set; no dropout) or, kDense, dense_list(sk) (lengths
+// 64-multiples).
+template <int D, bool kDense>
+cudaError_t launch_bsa_dq_wgmma(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dq, BlockList L,
+                                int bh, int sq, int sk, int causal,
+                                float scale, Dropout drop, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  cudaError_t err = bf16_map(&tq, q, bh, sq, D, kWgBlock);
+  if (err == cudaSuccess) err = bf16_map(&tk, k, bh, sk, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tv, v, bh, sk, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tdo, dout, bh, sq, D, kWgBlock);
+  if (err == cudaSuccess) err = bf16_map(&tdq, dq, bh, sq, D, kWgRows);
+  if (err != cudaSuccess) return err;
+  auto kernel = kDense && drop.on ? bsa_dq_wgmma_kernel<D, kDense, kDense>
+                                  : bsa_dq_wgmma_kernel<D, kDense, false>;
+  err = set_smem(kernel, dq_list_wgmma_smem<D>());
+  if (err != cudaSuccess) return err;
+  const dim3 grid = kDense ? dim3((sq + kWgBlock - 1) / kWgBlock, bh)
+                           : dim3(bh, sq / kWgBlock);
+  kernel<<<grid, kConsumerThreads, dq_list_wgmma_smem<D>(), st>>>(
+      tq, tk, tv, tdo, tdq, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), L, sq, sk, causal, scale, drop);
+  return cudaGetLastError();
+}
+
+// ----------------------------- dK/dV over a BlockList past D 128, by role
+//
+// bsa_dkv_split_wgmma_kernel replaces _bsa_dkv_kernel
+// (paddle_tpu/ops/pallas/block_sparse_attention.py:216, pallas_call :310)
+// and _fa_dkv_kernel (paddle_tpu/ops/pallas/flash_attention.py:316,
+// pallas_call :397) in bf16 at padded D 192 and 256: dV += p_drop^T dO
+// and dK += ds^T Q over a list of q tiles, p recomputed from lse.
+//
+// At D 128 a warpgroup holds dK and dV of its 64 kv rows (dkv_tile_wgmma:
+// D fp32 registers a thread); at D 256 that is 256 before S and dP. So
+// here a block owns 64 kv rows and its two warpgroups split the work by
+// role, each with one D / 8 x 4 accumulator:
+//   P   S^T = K Q^T, then p (masked, from lse), handed to dS as fp32
+//       through a 16 KB shared tile in the accumulator's thread layout
+//       (each thread of dS reads what its counterpart wrote: no shuffle,
+//       no bank conflict), then dV += p_drop^T dO;
+//   dS  dP^T = V dO^T while P computes S^T, then waits for p,
+//       ds^T = p (dp_drop - delta) scale, and dK += ds^T Q.
+// Each role issues two of a tile's four 64 x 64 x D products, and the
+// scores are computed once. Two named barriers hand the p tile over: full
+// (P arrives, dS waits) and empty (dS arrives once it has read p; P waits
+// before it writes the next tile's).
+//
+// K and V (64 rows each) are loaded once by TMA; the q tiles with their
+// dO, lse and delta come through a ring (3 stages at D 192, 2 at 256:
+// what 227 KB holds beside K, V and the p tile), refilled by thread 0 of
+// dS, the later role, once both have released a stage. Walk: the q tiles
+// of the own kv block's list (flash: dense_list(sq)); under causal those
+// wholly above the block's diagonal are a prefix, cut before anything is
+// loaded. Blocks launch heaviest first: blockIdx.y walks L.order, blk_own
+// / 64 thread blocks a logical block (flash: kv tile 0, the longest walk
+// under causal, of every batch-head first). A block with nothing to walk
+// writes exact zeros. No atomics: the result is deterministic.
+constexpr int kPFull = 1, kPEmpty = 2;  // named barriers of the p hand-over
+
+template <int D>
+__host__ __device__ constexpr int dkv_split_stages() {
+  return D == 192 ? 3 : 2;
+}
+template <int D>
+constexpr size_t dkv_split_wgmma_smem() {
+  return 1024 + 2 * tile_bytes<D>(kTile) +
+         dkv_split_stages<D>() * (2 * tile_bytes<D>(kTile) + 2 * kTile * 4) +
+         kTile * kTile * 4 + (1 + 2 * dkv_split_stages<D>()) * 8;
+}
+static_assert(dq_list_wgmma_smem<256>() <= 232448 &&
+                  dkv_split_wgmma_smem<192>() <= 232448 &&
+                  dkv_split_wgmma_smem<256>() <= 232448,
+              "a block asks for more than 227 KB of shared memory");
+
+// Role P on one 64-row q tile (Q, dO at q_base, do_base, its lse at
+// lse_t) against the block's 64 kv rows cols[h] (K at k_base): p into
+// p_s (p_busy: dS may still be reading the previous tile's), then
+// dv += p_drop^T dO.
+template <int D>
+__device__ __forceinline__ void dkv_p_tile_wgmma(
+    float (&dv)[D / 8][4], uint32_t k_base, uint32_t q_base,
+    uint32_t do_base, const float* lse_t, float4* p_s, const int (&cols)[2],
+    int r0, bool mask, int offset, float scale, const Dropout& drop,
+    uint32_t key, bool p_busy) {
+  const int tig = threadIdx.x % 4, tid = threadIdx.x % 128;
+  const float scale_log2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
+  float st[kTile / 8][4] = {};
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<kTile>(st, kmajor_desc(k_base, kk, kTile),
+                    kmajor_desc(q_base, kk, kTile), kk > 0);
+  wg_commit();
+  wg_wait<0>();
+  wg_fence_regs(st);
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rl = j * 8 + 2 * tig + (e & 1);
+      const bool masked = mask && r0 + rl + offset < cols[e >> 1];
+      st[j][e] =
+          masked ? 0.f
+                 : exp2f(fmaf(st[j][e], scale_log2, -lse_t[rl] * kLog2e));
+    }
+  if (p_busy) named_barrier(kPEmpty, kConsumerThreads);
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j)
+    p_s[j * 128 + tid] = make_float4(st[j][0], st[j][1], st[j][2], st[j][3]);
+  named_barrier_arrive(kPFull, kConsumerThreads);
+  if (drop.on)
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + j * 8 + 2 * tig + (e & 1);
+        const bool keep =
+            dropout_bits(key, row, cols[e >> 1]) >= drop.threshold;
+        st[j][e] = keep ? st[j][e] * drop.keep_inv : 0.f;
+      }
+  uint32_t pa[kTile / 16][4];
+  to_a_frags<kTile / 8>(pa, st);  // rounded to bf16, as the reference
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk)
+    wgmma_rs_t<D>(dv, pa[kk], mnmajor_desc(do_base, kk, kTile));
+  wg_commit();
+  wg_wait<0>();
+  wg_fence_regs(dv);
+}
+
+// Role dS on the same tile (V at v_base, the q rows' delta at dl_t): dP^T,
+// then p from p_s (p_next: tell P it may write the next tile's), and
+// dk += ds^T Q.
+template <int D>
+__device__ __forceinline__ void dkv_ds_tile_wgmma(
+    float (&dk)[D / 8][4], uint32_t v_base, uint32_t q_base,
+    uint32_t do_base, const float* dl_t, const float4* p_s,
+    const int (&cols)[2], int r0, float scale, const Dropout& drop,
+    uint32_t key, bool p_next) {
+  const int tig = threadIdx.x % 4, tid = threadIdx.x % 128;
+  float dpt[kTile / 8][4] = {};
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<kTile>(dpt, kmajor_desc(v_base, kk, kTile),
+                    kmajor_desc(do_base, kk, kTile), kk > 0);
+  wg_commit();
+  wg_wait<0>();
+  wg_fence_regs(dpt);
+  named_barrier(kPFull, kConsumerThreads);
+  float4 p[kTile / 8];
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) p[j] = p_s[j * 128 + tid];
+  if (p_next) named_barrier_arrive(kPEmpty, kConsumerThreads);
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rl = j * 8 + 2 * tig + (e & 1);
+      float dpv = dpt[j][e];
+      if (drop.on) {
+        const bool keep =
+            dropout_bits(key, r0 + rl, cols[e >> 1]) >= drop.threshold;
+        dpv = keep ? dpv * drop.keep_inv : 0.f;
+      }
+      const float pv = e == 0 ? p[j].x : e == 1 ? p[j].y
+                                                : e == 2 ? p[j].z : p[j].w;
+      dpt[j][e] = pv * (dpv - dl_t[rl]) * scale;  // ds^T
+    }
+  uint32_t da[kTile / 16][4];
+  to_a_frags<kTile / 8>(da, dpt);  // rounded to bf16, as the reference
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk)
+    wgmma_rs_t<D>(dk, da[kk], mnmajor_desc(q_base, kk, kTile));
+  wg_commit();
+  wg_wait<0>();
+  wg_fence_regs(dk);
+}
+
+template <int D, bool kDense, bool kDropout>
+__global__ void __launch_bounds__(kConsumerThreads, 1)
+bsa_dkv_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const __grid_constant__ CUtensorMap tm_dk,
+                           const __grid_constant__ CUtensorMap tm_dv,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta, BlockList L,
+                           int sq, int sk, int causal, float scale,
+                           Dropout drop) {
+  constexpr int kStages = dkv_split_stages<D>();
+  constexpr int kTileBytes = tile_bytes<D>(kTile);
+  constexpr int kRowBytes = kTile * 4;
+  constexpr int kLoader = 128;  // thread 0 of role dS
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* ks = align_1024(wg_smem);
+  unsigned char* vs = ks + kTileBytes;
+  unsigned char* qs = vs + kTileBytes;             // [kStages] q tiles
+  unsigned char* dos = qs + kStages * kTileBytes;  // [kStages] dO tiles
+  float* lse_s = reinterpret_cast<float*>(dos + kStages * kTileBytes);
+  float* dl_s = lse_s + kStages * kTile;           // [kStages][64] each
+  float4* p_s = reinterpret_cast<float4*>(dl_s + kStages * kTile);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(p_s + kTile / 8 * 128);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.x, per = L.blk_own / kTile;
+  const int blk = kDense ? blockIdx.y : L.order[blockIdx.y / per];
+  const int c0 = blk * L.blk_own + (blockIdx.y % per) * kTile;
+  const int* list = kDense ? nullptr : L.idx + blk * L.width;
+  const int offset = sk - sq;
+  const int n = kDense ? 1 : L.count[blk], per_entry = L.blk_other / kTile;
+  const auto entry_row = [&](int b) {
+    return kDense ? 0 : list[b] * L.blk_other;
+  };
+  // q tiles wholly above the block's diagonal (r0 + 63 + offset < c0) see
+  // none of it and are never loaded: a prefix of the ascending walk
+  int first = 0;
+  if (causal)
+    for (int b = 0; b < n; ++b) {
+      const int skip =
+          min(per_entry, max(c0 - offset - entry_row(b), 0) / kTile);
+      first += skip;
+      if (skip < per_entry) break;
+    }
+  const int n_t = n * per_entry - first;
+  const auto row_of = [&](int i) {
+    const int t = first + i;
+    return entry_row(t / per_entry) + (t % per_entry) * kTile;
+  };
+  // step i of the walk into its stage: Q, dO, lse and delta
+  const auto load = [&](int i) {
+    const int s = i % kStages, r0 = row_of(i);
+    mbar_expect_tx(&full[s], 2 * kTileBytes + 2 * kRowBytes);
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb) {
+      tma_load_3d(qs + s * kTileBytes + cb * kTile * 128, &tm_q, &full[s],
+                  cb * 64, r0, bh);
+      tma_load_3d(dos + s * kTileBytes + cb * kTile * 128, &tm_do, &full[s],
+                  cb * 64, r0, bh);
+    }
+    bulk_load(lse_s + s * kTile, lse + (size_t)bh * sq + r0, kRowBytes,
+              &full[s]);
+    bulk_load(dl_s + s * kTile, delta + (size_t)bh * sq + r0, kRowBytes,
+              &full[s]);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == kLoader) {
+    mbar_expect_tx(kv_full, 2 * kTileBytes);
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb) {
+      tma_load_3d(ks + cb * kTile * 128, &tm_k, kv_full, cb * 64, c0, bh);
+      tma_load_3d(vs + cb * kTile * 128, &tm_v, kv_full, cb * 64, c0, bh);
+    }
+    for (int i = 0; i < min(n_t, kStages); ++i) load(i);
+  }
+
+  const int role = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int g = (threadIdx.x % 32) / 4;
+  const int cols[2] = {c0 + warp * 16 + g, c0 + warp * 16 + g + 8};
+  if (!kDropout) drop.on = 0;  // compiled without the dropout code
+  const uint32_t key = dropout_key(drop, bh);
+  float acc[D / 8][4] = {};  // dV in role P, dK in role dS
+  mbar_wait(kv_full, 0);  // also with nothing to walk: the stores reuse K, V
+  // the walk, each stage waited for and released by both roles
+  const auto walk = [&](const auto& step) {
+    for (int i = 0; i < n_t; ++i) {
+      const int s = i % kStages, r0 = row_of(i);
+      mbar_wait(&full[s], (i / kStages) & 1);
+      step(i, s, r0);
+      mbar_arrive(&empty[s]);
+      if (threadIdx.x == kLoader && i + kStages < n_t) {
+        mbar_wait(&empty[s], (i / kStages) & 1);
+        load(i + kStages);
+      }
+    }
+  };
+  if (role == 0)
+    walk([&](int i, int s, int r0) {
+      dkv_p_tile_wgmma<D>(acc, smem_u32(ks), smem_u32(qs + s * kTileBytes),
+                          smem_u32(dos + s * kTileBytes), lse_s + s * kTile,
+                          p_s, cols, r0,
+                          causal && r0 + offset < c0 + kTile - 1, offset,
+                          scale, drop, key, i > 0);
+    });
+  else
+    walk([&](int i, int s, int r0) {
+      dkv_ds_tile_wgmma<D>(acc, smem_u32(vs), smem_u32(qs + s * kTileBytes),
+                           smem_u32(dos + s * kTileBytes), dl_s + s * kTile,
+                           p_s, cols, r0, scale, drop, key, i + 1 < n_t);
+    });
+  // dV and dK through the V and K tiles, which neither role reads any
+  // more, and TMA stores (exact zeros for an empty walk)
+  __syncthreads();
+  const float one[2] = {1.f, 1.f};
+  stage_acc_bf16<D>(role == 0 ? vs : ks, kTile, 0, acc, one);
+  fence_async_shared();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb) {
+      tma_store_3d(&tm_dk, ks + cb * kTile * 128, cb * 64, c0, bh);
+      tma_store_3d(&tm_dv, vs + cb * kTile * 128, cb * 64, c0, bh);
+    }
+    tma_store_drain();
+  }
+}
+
+// A block-sparse list (kv-major; block sizes 128-multiples that tile both
+// sequences, L.order set; no dropout) or, kDense, dense_list(sq)
+// (lengths 64-multiples). As the dQ kernel, the walk and the dropout are
+// template arguments.
+template <int D, bool kDense>
+cudaError_t launch_bsa_dkv_split_wgmma(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* delta,
+                                       void* dk, void* dv, BlockList L,
+                                       int bh, int sq, int sk, int causal,
+                                       float scale, Dropout drop,
+                                       cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv;
+  cudaError_t err = bf16_map(&tq, q, bh, sq, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tk, k, bh, sk, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tv, v, bh, sk, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tdo, dout, bh, sq, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tdk, dk, bh, sk, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tdv, dv, bh, sk, D, kTile);
+  if (err != cudaSuccess) return err;
+  auto kernel = kDense && drop.on
+                    ? bsa_dkv_split_wgmma_kernel<D, kDense, kDense>
+                    : bsa_dkv_split_wgmma_kernel<D, kDense, false>;
+  err = set_smem(kernel, dkv_split_wgmma_smem<D>());
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(bh, sk / kTile), kConsumerThreads,
+           dkv_split_wgmma_smem<D>(), st>>>(
+      tq, tk, tv, tdo, tdk, tdv, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), L, sq, sk, causal, scale, drop);
   return cudaGetLastError();
 }
 

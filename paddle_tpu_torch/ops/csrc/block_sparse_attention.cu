@@ -7,9 +7,16 @@
 //   bsa_fwd_[wgmma_]kernel  <- _bsa_fwd_kernel  (:92, pallas_call :146)
 //   bsa_dq_[wgmma_]kernel   <- _bsa_dq_kernel   (:182, pallas_call :271)
 //   bsa_dkv_[wgmma_]kernel  <- _bsa_dkv_kernel  (:216, pallas_call :310)
-// (bsa_fwd_wgmma_kernel lives in attention_wgmma.cuh: the flash forward
-// at D 192 and 256 runs it too) and, at D 192..512, the wide kernels of
-// wide_attention.cuh (but for the bf16 forward at 192 and 256).
+// Which kernel runs a call, by dtype and padded head dim:
+//   fp32 at 64, 128         bsa_fwd_kernel, bsa_dq_kernel, bsa_dkv_kernel
+//   bf16 at 64, 128         bsa_fwd_wgmma_kernel, bsa_dq_wgmma_kernel
+//                           (both in attention_wgmma.cuh, which flash's
+//                           bf16 D 192 and 256 run too),
+//                           bsa_dkv_wgmma_kernel (below)
+//   bf16 at 192, 256        bsa_fwd_wgmma_kernel, bsa_dq_wgmma_kernel,
+//                           bsa_dkv_split_wgmma_kernel (attention_wgmma.cuh)
+//   fp32 at 192..512, bf16  the wide kernels of wide_attention.cuh
+//   at 320..512
 // The TPU grid is (BH, n blocks, list slot): each step's BlockSpec index
 // map reads the list, so inactive blocks are never copied from HBM, and
 // the sums ride in VMEM scratch from slot to slot. Here one thread block
@@ -184,19 +191,21 @@ bsa_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------ bf16: wgmma fed by TMA rings
 //
-// The backward's bf16 kernels run the flash dQ and dK/dV kernels' design
-// (flash_attention.cu fa_dq_wgmma_kernel, fa_dkv_wgmma_kernel, their tile
-// steps shared through attention_wgmma.cuh, where the forward,
-// bsa_fwd_wgmma_kernel, walks the q-major lists as dQ does): a block owns
+// The backward's bf16 kernels at D 64 and 128 run the flash dQ and dK/dV
+// kernels' design (flash_attention.cu fa_dq_wgmma_kernel,
+// fa_dkv_wgmma_kernel, their tile steps shared through attention_wgmma.cuh,
+// where the forward, bsa_fwd_wgmma_kernel, and dQ, bsa_dq_wgmma_kernel,
+// walk the q-major lists; bsa_dkv_wgmma_kernel is here): a block owns
 // 128 rows of its side, two consumer warpgroups of 64, 256 threads; one
 // thread keeps a ring of the other side's 64-row tiles in flight by TMA,
 // refilling a stage once both warpgroups have released it. Only the walk
 // differs: step i of the ring is the i-th 64-row tile of the listed
 // blocks, in list order, a listed block of blk_other rows being
-// blk_other / 64 tiles. Block sizes are 128-multiples, so a block's 128 rows lie in one
-// logical block, and BlockMask's lists ascend: under causal the tiles
-// wholly above the block's diagonal are a prefix (dK/dV) or a suffix (dQ)
-// of the walk, which is cut to the rest before anything is loaded.
+// blk_other / 64 tiles. Block sizes are 128-multiples, so a block's 128
+// rows lie in one logical block, and BlockMask's lists ascend: under
+// causal the tiles wholly above the block's diagonal are a prefix (dK/dV)
+// or a suffix (dQ) of the walk, which is cut to the rest before anything
+// is loaded.
 //
 // Launch order: one block an SM, and a list may be far longer than the
 // mean (BigBird's two global kv blocks are attended by every q block: 32
@@ -206,122 +215,6 @@ bsa_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // the grid's y walks it (wg_block_row), every batch-head's blocks of one
 // logical block side by side on x. No atomics: dK/dV keeps the
 // reference's split from dQ and its result is deterministic.
-
-template <int D>
-__global__ void __launch_bounds__(kConsumerThreads, 1)
-bsa_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
-                    const __grid_constant__ CUtensorMap tm_k,
-                    const __grid_constant__ CUtensorMap tm_v,
-                    const __grid_constant__ CUtensorMap tm_do,
-                    const __grid_constant__ CUtensorMap tm_dq,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, BlockList L, int sq,
-                    int sk, int causal, float scale) {
-  constexpr int kQBytes = tile_bytes<D>(kWgBlock);
-  constexpr int kKvBytes = tile_bytes<D>(kTile);
-  extern __shared__ unsigned char wg_smem[];
-  unsigned char* qs = align_1024(wg_smem);
-  unsigned char* dos = qs + kQBytes;
-  unsigned char* ks = dos + kQBytes;              // [kDqStages] K tiles
-  unsigned char* vs = ks + kDqStages * kKvBytes;  // [kDqStages] V tiles
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kDqStages * kKvBytes);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = full + kDqStages;
-
-  const int bh = blockIdx.x;
-  int blk;
-  const int q0 = wg_block_row(L, blk);
-  const int offset = sk - sq;
-  const int* list = L.idx + blk * L.width;
-  const int n = L.count[blk], per_entry = L.blk_other / kTile;
-  // kv tiles wholly above the block's diagonal (past its last row's last
-  // column) are never loaded: a suffix of the ascending walk
-  int n_t = n * per_entry;
-  if (causal) {
-    const int last_col = q0 + kWgBlock - 1 + offset;
-    n_t = 0;
-    for (int a = 0; a < n && list[a] * L.blk_other <= last_col; ++a)
-      n_t += min(per_entry, (last_col - list[a] * L.blk_other) / kTile + 1);
-  }
-  const auto col_of = [&](int t) {
-    return list[t / per_entry] * L.blk_other + (t % per_entry) * kTile;
-  };
-  // kv tile t of the walk into its stage: K and V
-  const auto load = [&](int t) {
-    const int s = t % kDqStages, c0 = col_of(t);
-    mbar_expect_tx(&full[s], 2 * kKvBytes);
-#pragma unroll
-    for (int cb = 0; cb < D / 64; ++cb) {
-      tma_load_3d(ks + s * kKvBytes + cb * kTile * 128, &tm_k, &full[s],
-                  cb * 64, c0, bh);
-      tma_load_3d(vs + s * kKvBytes + cb * kTile * 128, &tm_v, &full[s],
-                  cb * 64, c0, bh);
-    }
-  };
-
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < kDqStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumerThreads);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    mbar_expect_tx(q_full, 2 * kQBytes);
-#pragma unroll
-    for (int cb = 0; cb < D / 64; ++cb) {
-      tma_load_3d(qs + cb * kWgBlock * 128, &tm_q, q_full, cb * 64, q0, bh);
-      tma_load_3d(dos + cb * kWgBlock * 128, &tm_do, q_full, cb * 64, q0,
-                  bh);
-    }
-    for (int t = 0; t < min(n_t, kDqStages); ++t) load(t);
-  }
-
-  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
-  const int g = (threadIdx.x % 32) / 4;
-  const int row0 = q0 + wg * kWgRows;
-  const int rows[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
-  const uint32_t q_base = smem_u32(qs) + wg * kWgRows * 128;
-  const uint32_t do_base = smem_u32(dos) + wg * kWgRows * 128;
-  const Dropout none{};
-  float lse_l2[2], dl[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    lse_l2[h] = lse[(size_t)bh * sq + rows[h]] * kLog2e;
-    dl[h] = delta[(size_t)bh * sq + rows[h]];
-  }
-  float acc[D / 8][4] = {};
-  mbar_wait(q_full, 0);
-  for (int t = 0; t < n_t; ++t) {
-    const int s = t % kDqStages, c0 = col_of(t);
-    if (threadIdx.x == 0 && t > 0 && t - 1 + kDqStages < n_t) {
-      mbar_wait(&empty[(t - 1) % kDqStages], ((t - 1) / kDqStages) & 1);
-      load(t - 1 + kDqStages);
-    }
-    mbar_wait(&full[s], (t / kDqStages) & 1);
-    if (!(causal && c0 > row0 + kWgRows - 1 + offset))
-      dq_tile_wgmma<D>(acc, q_base, do_base, smem_u32(ks + s * kKvBytes),
-                       smem_u32(vs + s * kKvBytes), rows, lse_l2, dl, c0,
-                       causal && c0 + kTile - 1 > row0 + offset, offset,
-                       scale, none, 0u);
-    mbar_arrive(&empty[s]);
-  }
-  // dQ through the warpgroup's rows of the Q tile, which it no longer
-  // reads, and one TMA store (zeros for rows that saw no column)
-  const float one[2] = {1.f, 1.f};
-  stage_acc_bf16<D>(qs, kWgBlock, wg * kWgRows, acc, one);
-  fence_async_shared();
-  named_barrier(1 + wg, 128);
-  if (threadIdx.x % 128 == 0) {
-#pragma unroll
-    for (int cb = 0; cb < D / 64; ++cb)
-      tma_store_3d(&tm_dq, qs + (cb * kWgBlock + wg * kWgRows) * 128,
-                   cb * 64, row0, bh);
-    tma_store_drain();
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kConsumerThreads, 1)
@@ -508,28 +401,16 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
                                  scale, Dropout{}, st);
 }
 
-// Block sizes must be whole 64-row tiles and tile both sequences; the
-// lists must have at least one slot.
+// The bf16 dQ: bsa_dq_wgmma_kernel (attention_wgmma.cuh) over the lists,
+// with no dropout.
 template <int D>
 cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, BlockList L, int bh,
                             int sq, int sk, int causal, float scale,
                             cudaStream_t st) {
-  CUtensorMap tq, tk, tv, tdo, tdq;
-  cudaError_t err = bf16_map(&tq, q, bh, sq, D, kWgBlock);
-  if (err == cudaSuccess) err = bf16_map(&tk, k, bh, sk, D, kTile);
-  if (err == cudaSuccess) err = bf16_map(&tv, v, bh, sk, D, kTile);
-  if (err == cudaSuccess) err = bf16_map(&tdo, dout, bh, sq, D, kWgBlock);
-  if (err == cudaSuccess) err = bf16_map(&tdq, dq, bh, sq, D, kWgRows);
-  if (err != cudaSuccess) return err;
-  auto kernel = bsa_dq_wgmma_kernel<D>;
-  err = set_smem(kernel, dq_wgmma_smem<D>());
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(bh, sq / kWgBlock), kConsumerThreads, dq_wgmma_smem<D>(),
-           st>>>(tq, tk, tv, tdo, tdq, static_cast<const float*>(lse),
-                 static_cast<const float*>(delta), L, sq, sk, causal, scale);
-  return cudaGetLastError();
+  return launch_bsa_dq_wgmma<D, false>(q, k, v, dout, lse, delta, dq, L, bh,
+                                       sq, sk, causal, scale, Dropout{}, st);
 }
 
 template <int D>
@@ -576,8 +457,9 @@ BlockList make_list(const void* idx, const void* count, const void* order,
 // Dispatch on (dtype, padded head dim): dtype 0 = float32 runs the FMA
 // kernels (FP32), 1 = bfloat16 the tensor-core kernels (BF16), at
 // head_dim 64 or 128; head_dim 192..512 (multiples of 64) runs the wide
-// kernels (WIDE, wide_attention.cuh) in either dtype, except the bf16
-// forward at 192 and 256 (bsa_fwd_launch). The arguments are
+// kernels (WIDE, wide_attention.cuh) in either dtype, except bf16 at 192
+// and 256 (the list kernels of attention_wgmma.cuh, picked in each entry
+// point before this dispatch). The arguments are
 // the kernels' up to sq, sk; causal, scale and the stream follow (with
 // head_dim before them for WIDE). Everything else is refused with
 // cudaErrorInvalidValue before any launch.
@@ -637,6 +519,13 @@ int bsa_dq_launch(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const BlockList L = make_list(cols, counts, order_q, a_max, blk_q, blk_k);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // bf16 at padded D 192 and 256 runs the wgmma dQ too
+  if (dtype == 1 && head_dim == 192)
+    return (int)launch_dq_wgmma<192>(q, k, v, dout, lse, delta, dq, L, bh,
+                                     sq, sk, causal, scale, st);
+  if (dtype == 1 && head_dim == 256)
+    return (int)launch_dq_wgmma<256>(q, k, v, dout, lse, delta, dq, L, bh,
+                                     sq, sk, causal, scale, st);
   BSA_DISPATCH(launch_dq, launch_dq_wgmma, launch_wide_dq, q, k, v, dout,
                lse, delta, dq, L, bh, sq, sk);
 }
@@ -652,6 +541,16 @@ int bsa_dkv_launch(const void* q, const void* k, const void* v,
   const BlockList L =
       make_list(rows, rcounts, order_kv, b_max, blk_k, blk_q);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // bf16 at padded D 192 and 256: a role a warpgroup
+  // (attention_wgmma.cuh bsa_dkv_split_wgmma_kernel)
+  if (dtype == 1 && head_dim == 192)
+    return (int)launch_bsa_dkv_split_wgmma<192, false>(
+        q, k, v, dout, lse, delta, dk, dv, L, bh, sq, sk, causal, scale,
+        Dropout{}, st);
+  if (dtype == 1 && head_dim == 256)
+    return (int)launch_bsa_dkv_split_wgmma<256, false>(
+        q, k, v, dout, lse, delta, dk, dv, L, bh, sq, sk, causal, scale,
+        Dropout{}, st);
   BSA_DISPATCH(launch_dkv, launch_dkv_wgmma, launch_wide_dkv, q, k, v, dout,
                lse, delta, dk, dv, L, bh, sq, sk);
 }

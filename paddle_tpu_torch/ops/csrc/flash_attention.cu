@@ -1,15 +1,17 @@
 // Flash attention for Hopper (sm_90a), written by hand: forward, dQ and
 // dK/dV, on [BH, S, D] tensors (D padded to a multiple of 64 up to 512 by
-// the wrapper; D 192..512 run the wide kernels of wide_attention.cuh, but
-// for the bf16 forward at 192 and 256).
+// the wrapper; bf16 at D 192 and 256 runs the list kernels of
+// attention_wgmma.cuh over a dense walk, fp32 past 128 and bf16 at
+// 320..512 the wide kernels of wide_attention.cuh).
 //
 // Replaces the three Pallas TPU kernels of
 // paddle_tpu/ops/pallas/flash_attention.py:
 //   fa_fwd_kernel, fa_fwd_wgmma_kernel  <- _fa_fwd_kernel (:162, call :230)
 //   fa_dq_kernel, fa_dq_wgmma_kernel    <- _fa_dq_kernel  (:277, call :380)
 //   fa_dkv_kernel, fa_dkv_wgmma_kernel  <- _fa_dkv_kernel (:316, call :397)
-// and, in bf16 at padded D 192 and 256, the forward of
-// attention_wgmma.cuh (bsa_fwd_wgmma_kernel, over a dense walk).
+// and, in bf16 at padded D 192 and 256, the list kernels of
+// attention_wgmma.cuh over a dense walk: bsa_fwd_wgmma_kernel,
+// bsa_dq_wgmma_kernel and bsa_dkv_split_wgmma_kernel.
 // Each computes what its TPU kernel computes; none is carried over block
 // by block. The TPU grids walk the inner tile loop in order and carry
 // (m, l, acc) or the dq / dk,dv sums in VMEM scratch across grid steps; on
@@ -727,8 +729,9 @@ Dropout make_dropout(unsigned seed, unsigned threshold, float keep_div,
 // Dispatch on (dtype, padded head dim): dtype 0 = float32 runs the FMA
 // kernels (FP32), 1 = bfloat16 the tensor-core kernels (BF16), at head_dim
 // 64 or 128; head_dim 192..512 (multiples of 64) runs the wide kernels
-// (WIDE) in either dtype, over a dense walk, except the bf16 forward at
-// 192 and 256 (attention_wgmma.cuh bsa_fwd_wgmma_kernel, fa_fwd_launch).
+// (WIDE) in either dtype, over a dense walk, except bf16 at 192 and 256
+// (the list kernels of attention_wgmma.cuh, picked in each entry point
+// before this dispatch).
 // Everything else is refused with cudaErrorInvalidValue before any
 // launch.
 #define FA_DISPATCH(FP32, BF16, WIDE, WALK, ...)                           \
@@ -781,6 +784,15 @@ int fa_dq_launch(const void* q, const void* k, const void* v,
   const Dropout drop =
       make_dropout(seed, threshold, keep_div, keep_inv, dropout_on);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // bf16 at padded D 192 and 256: the wgmma dQ over the dense walk
+  if (dtype == 1 && head_dim == 192)
+    return (int)launch_bsa_dq_wgmma<192, true>(q, k, v, dout, lse, delta, dq,
+                                         dense_list(sk), bh, sq, sk, causal,
+                                         scale, drop, st);
+  if (dtype == 1 && head_dim == 256)
+    return (int)launch_bsa_dq_wgmma<256, true>(q, k, v, dout, lse, delta, dq,
+                                         dense_list(sk), bh, sq, sk, causal,
+                                         scale, drop, st);
   FA_DISPATCH(launch_dq, launch_dq_wgmma, launch_wide_dq,
               (q, k, v, dout, lse, delta, dq, dense_list(sk), bh, sq, sk,
                head_dim, causal, scale, drop, st),
@@ -798,6 +810,15 @@ int fa_dkv_launch(const void* q, const void* k, const void* v,
   const Dropout drop =
       make_dropout(seed, threshold, keep_div, keep_inv, dropout_on);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // bf16 at padded D 192 and 256: a role a warpgroup, over the dense walk
+  if (dtype == 1 && head_dim == 192)
+    return (int)launch_bsa_dkv_split_wgmma<192, true>(
+        q, k, v, dout, lse, delta, dk, dv, dense_list(sq), bh, sq, sk, causal,
+        scale, drop, st);
+  if (dtype == 1 && head_dim == 256)
+    return (int)launch_bsa_dkv_split_wgmma<256, true>(
+        q, k, v, dout, lse, delta, dk, dv, dense_list(sq), bh, sq, sk, causal,
+        scale, drop, st);
   FA_DISPATCH(launch_dkv, launch_dkv_wgmma, launch_wide_dkv,
               (q, k, v, dout, lse, delta, dk, dv, dense_list(sq), bh, sq, sk,
                head_dim, causal, scale, drop, st),

@@ -149,6 +149,13 @@ __device__ __forceinline__ void named_barrier(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// Arrives at barrier `id` (of `n` threads) without waiting: the threads
+// that wait there with named_barrier see this thread's shared-memory
+// writes made before it.
+__device__ __forceinline__ void named_barrier_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // ---------------------------------------------------- register budgets
 
 template <int N>

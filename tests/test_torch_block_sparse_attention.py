@@ -66,9 +66,12 @@ BLOCK_CASES = [
     # blk_q 256, blk_k 128: one q block spans two kernel tiles of kv
     (1, 512, 2, 32, np.array([[1, 1, 0, 0], [1, 0, 1, 1]], bool), True),
     (1, 512, 1, 128, np.array([[1, 0, 0, 1], [0, 1, 1, 0]], bool), False),
-    # head dims past 128: the card runs its bf16 forward on wgmma at 192
-    # and 256, the rest on its wide kernels
+    # head dims past 128: in bf16 the card runs the list kernels of
+    # attention_wgmma.cuh at 192 and 256, the wide kernels past
     (1, 256, 2, 192, M_LG, False),
+    # causal at D 192, kv block 2 attended by no q block (dK, dV zero)
+    (1, 384, 1, 192, np.array([[1, 0, 0], [1, 1, 0], [0, 1, 0]], bool),
+     True),
     (1, 512, 1, 256, np.array([[1, 1, 0, 0], [1, 0, 1, 1]], bool), True),
     (1, 512, 1, 256, np.array([[1, 1, 0, 0], [1, 0, 1, 1]], bool), False),
 ]

@@ -552,11 +552,20 @@ FLASH_CASES = [
     (1, 192, 320, 128, False, 0.5),   # 64-multiples the gate would refuse
     (1, 192, 320, 128, True, 0.0),    # causal, odd count of 64-row tiles
     (1, 2048, 2048, 128, True, 0.0),  # the K/V ring wraps many times
-    # padded head dims past 128: the bf16 forward at 192 and 256 on
-    # bsa_fwd_wgmma_kernel's dense walk, the rest on the wide kernels
+    # padded head dims past 128: bf16 at 192 and 256 on the list kernels
+    # of attention_wgmma.cuh over the dense walk (bsa_fwd_wgmma_kernel,
+    # bsa_dq_wgmma_kernel, bsa_dkv_split_wgmma_kernel), the rest on the
+    # wide kernels
     (2, 256, 256, 192, True, 0.0),
     (2, 512, 512, 256, True, 0.0),
     (1, 192, 320, 256, True, 0.3),    # dropout, offset 128, odd tile count
+    (2, 192, 256, 192, False, 0.0),
+    (2, 256, 256, 256, False, 0.0),
+    (1, 256, 384, 192, True, 0.0),    # causal offset 128
+    (1, 320, 320, 192, True, 0.0),    # odd count: a dQ block of one live 64
+    (2, 320, 128, 256, False, 0.0),   # sq > sk, odd tile count
+    (1, 512, 512, 192, True, 0.2),    # causal dropout
+    (1, 320, 448, 256, True, 0.2),    # causal dropout, offset 128, odd count
     (1, 128, 384, 320, True, 0.3),    # causal offset 256, dropout
     (1, 256, 128, 512, False, 0.0),   # sq > sk
     (1, 192, 320, 512, True, 0.2),    # causal dropout, offset 128
@@ -801,8 +810,8 @@ def _route_grads(call, leaves, impl, monkeypatch):
 def test_sdpa_runs_the_wide_kernels_at_head_dim_200(card, dtype,
                                                     monkeypatch):
     """``scaled_dot_product_attention`` at D 200 (padded to 256) takes the
-    flash route, launches each kernel once (the wide kernels; in bf16 the
-    forward is bsa_fwd_wgmma_kernel's), and agrees with the same
+    flash route, launches each kernel once (fp32: the wide kernels; bf16:
+    the list kernels of attention_wgmma.cuh), and agrees with the same
     route on the plain versions, forward and q/k/v gradients; and the
     plain flash route with the dense composition (fp32)."""
     from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
@@ -832,8 +841,8 @@ def test_sdpa_runs_the_wide_kernels_at_head_dim_200(card, dtype,
 def test_sparse_attention_runs_the_wide_kernels_at_head_dim_256(
         card, dtype, monkeypatch):
     """``sparse_attention``'s block route at D 256 (a BigBird-like CSR at
-    128-token blocks, T 1024) launches each block-sparse kernel once (the
-    wide kernels; in bf16 the forward is bsa_fwd_wgmma_kernel) and
+    128-token blocks, T 1024) launches each block-sparse kernel once (fp32:
+    the wide kernels; bf16: the list kernels of attention_wgmma.cuh) and
     agrees with the same route on the plain versions, forward and
     q/k/v gradients, and with the dense masked composition (fp32)."""
     from paddle_tpu_torch.nn.functional import attention as att
@@ -891,9 +900,13 @@ BSA_CASES = [
     # the bf16 kernels on wgmma: 128-row blocks of 256-row lists
     (2, 1024, 1024, 64, 256, 256, True, 1),
     (2, 2048, 1024, 128, 128, 512, False, 1),
-    # padded head dims past 128: the bf16 forward at 192 and 256 on
-    # bsa_fwd_wgmma_kernel, the rest on the wide kernels
+    # padded head dims past 128: bf16 at 192 and 256 on the list kernels
+    # of attention_wgmma.cuh, the rest on the wide kernels
     (2, 512, 512, 192, 128, 128, True, 1),
+    (2, 1024, 1024, 192, 128, 256, False, 1),
+    (1, 1024, 1024, 256, 256, 128, False, 3),
+    (1, 1024, 768, 192, 512, 256, True, None),  # sq > sk: rows see none
+    (1, 1024, 768, 256, 512, 256, True, None),  # sq > sk: rows see none
     (1, 1024, 1024, 192, 256, 128, True, 2),   # rows that see no column
     (2, 1024, 1024, 256, 128, 256, False, 2),
     (1, 1024, 1024, 256, 256, 128, True, None),  # rows that see no column
@@ -1053,9 +1066,9 @@ BSA_MUTATIONS = {
             "if (live && !(causal && c0 > row0 + kWgRows - 1 + offset))",
             "if (live && (t >= per_entry || n == 1) "
             "&& !(causal && c0 > row0 + kWgRows - 1 + offset))"),
-    "dq": ("block_sparse_attention.cu", "bsa_dq_wgmma_kernel",
-           "if (!(causal && c0 > row0 + kWgRows - 1 + offset))",
-           "if ((t >= per_entry || n == 1) "
+    "dq": ("attention_wgmma.cuh", "bsa_dq_wgmma_kernel",
+           "if (live && !(causal && c0 > row0 + kWgRows - 1 + offset))",
+           "if (live && (t >= per_entry || n == 1) "
            "&& !(causal && c0 > row0 + kWgRows - 1 + offset))"),
     "dkv": ("block_sparse_attention.cu", "bsa_dkv_wgmma_kernel",
             "if (!(causal && r0 + kTile - 1 + offset < col0))",
@@ -1064,20 +1077,21 @@ BSA_MUTATIONS = {
 }
 
 
-def _build_mutant(kind: str, out_dir):
-    """block_sparse_attention.cu built in its own directory beside the
-    mutated file (a header there is the one its quoted include finds):
-    returns (library, nvcc process)."""
+def _build_mutant(kind: str, out_dir, mutations=BSA_MUTATIONS,
+                  source: str = "block_sparse_attention.cu"):
+    """``source`` built in its own directory beside the mutated file of
+    ``mutations[kind]`` (a header there is the one its quoted include
+    finds): returns (library, nvcc process)."""
     import shutil
     import subprocess
 
-    file, kernel, loop, broken = BSA_MUTATIONS[kind]
+    file, kernel, loop, broken = mutations[kind]
     out_dir.mkdir()
     (out_dir / file).write_text(_mutated_source(kernel, loop, broken, file))
-    src = out_dir / "block_sparse_attention.cu"
+    src = out_dir / source
     if not src.exists():
-        shutil.copy(_build.CSRC / "block_sparse_attention.cu", src)
-    lib = out_dir / "libbsa.so"
+        shutil.copy(_build.CSRC / source, src)
+    lib = out_dir / f"lib{kind}.so"
     return lib, subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
@@ -1197,6 +1211,139 @@ def test_forward_dispatch_takes_the_wgmma_list_kernel(card, family, dtype,
     ref, ref_lse = fwd(q, k, v, *args, impl="torch")
     _close(got, ref, dtype)
     _close(got_lse, ref_lse, torch.float32)
+
+
+def _backward_case(family, dtype, d, device):
+    """A small call of the family's dQ and dK/dV entry points (on their
+    plain forward's lse and delta): (dq call, dkv call, launch names)."""
+    from paddle_tpu_torch.ops import block_sparse_attention as bsa
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    if family == "flash":
+        q, k, v, do = flash_inputs(2, 256, 256, d, dtype, device, d)
+        args = (True, d ** -0.5, 0.0, 0)
+        mod, pfx = fa, "flash"
+    else:
+        spec, q, k, v, do = bsa_case(2, 512, 512, d, 128, 128, False, None,
+                                     dtype, device)
+        args = (spec, False, d ** -0.5)
+        mod, pfx = bsa, "bsa"
+    fwd, dq, dkv = (getattr(mod, f"{pfx}_{n}") for n in ("fwd", "dq", "dkv"))
+    out, lse = fwd(q, k, v, *args, impl="torch")
+    delta = (do.float() * out.float()).sum(-1)
+    return ((lambda **kw: dq(q, k, v, do, lse, delta, *args, **kw)),
+            (lambda **kw: dkv(q, k, v, do, lse, delta, *args, **kw)),
+            mod.KERNEL_NAMES)
+
+
+@pytest.mark.parametrize("family", ["flash", "sparse"])
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 128), (torch.bfloat16, 192), (torch.bfloat16, 256),
+    (torch.bfloat16, 512), (torch.float32, 256)])
+def test_backward_dispatch_takes_the_wgmma_list_kernels(card, family, dtype,
+                                                        d):
+    """The backward's dispatch: bf16 at padded D 192 and 256 runs
+    bsa_dq_wgmma_kernel and bsa_dkv_split_wgmma_kernel in both families;
+    bf16 at 512 and fp32 past 128 stay on wide_dq_kernel and
+    wide_dkv_kernel; bf16 at 128 on each family's own wgmma kernels. One
+    launch each, counted, within the limits."""
+    dq, dkv, names = _backward_case(family, dtype, d, card)
+    bf16 = dtype == torch.bfloat16
+    if bf16 and d in (192, 256):
+        want = ("bsa_dq_wgmma_kernel", "bsa_dkv_split_wgmma_kernel")
+    elif d > 128:
+        want = ("wide_dq_kernel", "wide_dkv_kernel")
+    elif family == "flash":
+        want = ("fa_dq_wgmma_kernel", "fa_dkv_wgmma_kernel")
+    else:
+        want = ("bsa_dq_wgmma_kernel", "bsa_dkv_wgmma_kernel")
+    for call, name, kernel in zip((dq, dkv), names[1:], want):
+        call()  # builds and loads the kernels first
+        _build.reset_launches()
+        ran = _device_kernels(call)
+        assert _build.launches() == {name: 1}
+        assert _ran(kernel, ran), (kernel, ran)
+        got, ref = call(), call(impl="torch")
+        if torch.is_tensor(got):
+            got, ref = (got,), (ref,)
+        for a, b in zip(got, ref):
+            _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("family", ["flash", "sparse"])
+@pytest.mark.parametrize("d", [192, 256])
+def test_split_dkv_is_deterministic(card, family, d):
+    """bsa_dkv_split_wgmma_kernel keeps the reference's split from dQ and
+    uses no atomics: two runs give the same bits (flash with causal
+    dropout, block-sparse on a BigBird-like pattern with an empty kv
+    block)."""
+    from paddle_tpu_torch.ops import block_sparse_attention as bsa
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = flash_inputs(4, 1024, 1024, d, torch.bfloat16, card, d)
+    if family == "flash":
+        args = (True, d ** -0.5, 0.1, 5)
+        fwd, dkv = fa.flash_fwd, fa.flash_dkv
+    else:
+        mask = bigbird_like(8, seed=d)
+        mask[:, 3] = False
+        args = (bsa.block_mask_spec(mask, 1024, 1024, False), False,
+                d ** -0.5)
+        fwd, dkv = bsa.bsa_fwd, bsa.bsa_dkv
+    out, lse = fwd(q, k, v, *args, impl="torch")
+    delta = (do.float() * out.float()).sum(-1)
+    first = dkv(q, k, v, do, lse, delta, *args)
+    second = dkv(q, k, v, do, lse, delta, *args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# bsa_dkv_split_wgmma_kernel broken two ways: kind -> (file, function, a
+# line of it, the line broken)
+SPLIT_MUTATIONS = {
+    # the p hand-over: each thread of role dS reads its neighbour's p
+    "p_exchange": ("attention_wgmma.cuh", "dkv_ds_tile_wgmma",
+                   "p[j] = p_s[j * 128 + tid];",
+                   "p[j] = p_s[j * 128 + (tid ^ 1)];"),
+    # the causal prefix cut one q tile too long: the tile on the diagonal
+    # is never walked
+    "prefix_cut": ("attention_wgmma.cuh", "bsa_dkv_split_wgmma_kernel",
+                   "max(c0 - offset - entry_row(b), 0) / kTile);",
+                   "(max(c0 - offset - entry_row(b), 0) + kTile) / kTile);"),
+}
+
+
+def test_split_dkv_limit_rejects_a_broken_p_exchange_or_prefix_cut(
+        card, tmp_path, monkeypatch):
+    """The bf16 limit tells the split dK/dV kernel from a broken one: the
+    flash source is rebuilt beside a copy of attention_wgmma.cuh whose
+    role dS reads its neighbour's p, and beside one whose causal walk
+    cuts one q tile too many; at flash's wide shape (BH 16, S 1024,
+    causal, D 256) each result must miss REL_TOL, while the right kernel
+    meets it. Prints both readings."""
+    import ctypes
+
+    q, k, v, do = flash_inputs(16, 1024, 1024, 256, torch.bfloat16, card,
+                               seed=31)
+    args = (True, 256 ** -0.5, 0.0, 0)
+    want = _flash_case("dkv", q, k, v, do, args, impl="torch")
+    right = rel_err(_flash_case("dkv", q, k, v, do, args), want)
+    procs = {kind: _build_mutant(kind, tmp_path / kind, SPLIT_MUTATIONS,
+                                 "flash_attention.cu")
+             for kind in SPLIT_MUTATIONS}
+    broken_err = {}
+    for kind, (lib, proc) in procs.items():
+        out = proc.communicate()[0]
+        assert proc.returncode == 0, out.decode()[-2000:]
+        monkeypatch.setitem(_build._LIBS, "flash_attention",
+                            ctypes.CDLL(str(lib)))
+        broken_err[kind] = rel_err(_flash_case("dkv", q, k, v, do, args),
+                                   want)
+    print(f"split dK/dV bf16 rel err, right kernel: {right}; broken: "
+          f"{broken_err}; limit {REL_TOL[torch.bfloat16]}")
+    assert right <= REL_TOL[torch.bfloat16]
+    for kind in SPLIT_MUTATIONS:
+        assert broken_err[kind] > REL_TOL[torch.bfloat16]
 
 
 # -------------------------------------------------------------- LayerNorm

@@ -52,11 +52,14 @@ CASES = [
     (1, 256, 384, 2, 64, True, 0.0),     # causal offset 128
     (1, 384, 256, 2, 64, False, 0.0),    # sq > sk, non-causal
     (1, 256, 256, 2, 128, False, 0.3),   # dropout at D = 128
-    # head dims past 128: the card runs its wide kernels (padded D 192..512)
+    # head dims past 128: in bf16 the card runs the list kernels of
+    # attention_wgmma.cuh at padded D 192 and 256, the wide kernels past
     (1, 256, 256, 2, 160, False, 0.0),   # D zero-padded to 192
     (1, 256, 256, 2, 160, True, 0.0),
     (1, 256, 256, 2, 256, False, 0.0),
     (1, 256, 256, 2, 256, True, 0.0),
+    (1, 256, 256, 2, 256, False, 0.3),   # dropout at D = 256
+    (1, 256, 384, 2, 192, True, 0.0),    # causal offset 128 at D = 192
 ]
 
 
@@ -188,6 +191,10 @@ TWIN_CASES = [
     (1, 192, 320, 128, True, 0.0),    # causal, odd count of 64-row tiles
     (1, 512, 512, 64, True, 0.0),     # causal S = 512 at D = 64
     (2, 256, 384, 128, True, 0.2),    # causal dropout, offset 128
+    # the bf16 list kernels past D 128: a dQ block of one live 64-row
+    # warpgroup, 64-row dK/dV blocks, sq > sk
+    (1, 192, 320, 256, True, 0.2),    # odd tile count, offset, dropout
+    (2, 320, 128, 192, False, 0.0),   # sq > sk, odd count of 64-row tiles
 ]
 
 
