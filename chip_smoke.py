@@ -93,18 +93,21 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    copy; fp32 out and q/k/v gradients agree with the dense masked
    composition, bf16 with the plain versions on the same route.
    ``wide`` — the six flash and block-sparse entry points at padded head
-   dims 192, 256 and 512 (bf16) and 256 (fp32), and flash's at bf16 256
-   with dropout, against their plain versions: the kernel each case ran
-   (the profiler's name: at bf16 192 and 256 the list kernels of
+   dims 192, 256 and 512 (bf16) and 256 (fp32), flash's at bf16 256 with
+   dropout, and the forwards at bf16 320 and flash's at bf16 512 with
+   dropout, against their plain versions: the kernel each case ran (the
+   profiler's name: at bf16 192 and 256 the list kernels of
    ``attention_wgmma.cuh``, ``bsa_fwd_wgmma_kernel``,
    ``bsa_dq_wgmma_kernel`` and ``bsa_dkv_split_wgmma_kernel``, in both
-   families; the wide kernels elsewhere), errors, times, bounds, ptxas;
-   ``wide_library``: torch's scaled_dot_product_attention on the bf16 D
-   256 inputs (causal for flash, the expanded mask for block-sparse),
-   forward and backward (dq, dk and dv in one call), and its forward at
-   D 512, each with the backend it ran, as the yardstick. With
-   ``--parent DIR``, ``wide_parent`` times that tree's bf16 entry points
-   at D 192 and 256 beside this tree's (parent, this, this, parent).
+   families; the bf16 forward at 320 and 512 that header's
+   ``bsa_fwd_dsplit_wgmma_kernel``; the wide kernels elsewhere), errors,
+   times, bounds, ptxas; ``wide_library``: torch's
+   scaled_dot_product_attention on the bf16 D 256 and D 512 inputs
+   (causal for flash, the expanded mask for block-sparse), forward and
+   backward (dq, dk and dv in one call), each with the backend it ran,
+   as the yardstick. With ``--parent DIR``, ``wide_parent`` times that
+   tree's bf16 entry points at D 192 and 256, and its forwards at D 512,
+   beside this tree's (parent, this, this, parent).
 11. ``layer_norm`` — the LayerNorm kernel against its plain version at
    [8192, 2048] and [16, 2048], fp32 and bf16, with
    ``torch.nn.functional.layer_norm`` as the yardstick; then
@@ -1522,12 +1525,14 @@ def sparse_parent(parent, calls, mask, tensors, causal, scale, timer):
 # flash's dropout rate; block-sparse attention has no dropout and skips
 # a case with one). Flash at BH 16, S 1024, causal; block-sparse at BH 8,
 # S 2048 on BigBird's pattern at 128-token blocks. Smaller than the main
-# shapes: every kernel but bf16 at D <= 256 runs on the FMA units and
-# repeats the scores for each 64-column output slice.
+# shapes: fp32, and the bf16 dQ and dK/dV past D 256, run on the FMA
+# units and repeat the scores for each 64-column output slice.
 WIDE_CASES = ((torch.bfloat16, 192, ("fwd", "dq", "dkv"), 0.0),
               (torch.bfloat16, 256, ("fwd", "dq", "dkv"), 0.0),
               (torch.bfloat16, 256, ("fwd", "dq", "dkv"), 0.1),
+              (torch.bfloat16, 320, ("fwd",), 0.0),
               (torch.bfloat16, 512, ("fwd", "dq", "dkv"), 0.0),
+              (torch.bfloat16, 512, ("fwd",), 0.1),
               (torch.float32, 256, ("fwd", "dq", "dkv"), 0.0))
 WIDE_SHAPE = dict(flash_bh=16, flash_seq=1024, sparse_bh=8, sparse_seq=2048)
 
@@ -1537,12 +1542,16 @@ WIDE_SHAPE = dict(flash_bh=16, flash_seq=1024, sparse_bh=8, sparse_seq=2048)
 WIDE_LIST_KERNEL_OF = {"fwd": "bsa_fwd_wgmma_kernel",
                        "dq": "bsa_dq_wgmma_kernel",
                        "dkv": "bsa_dkv_split_wgmma_kernel"}
+# the bf16 forward of both families at padded head dims 320..512
+WIDE_DSPLIT_KERNEL = "bsa_fwd_dsplit_wgmma_kernel"
 
 
 def wide_kernel_of(kind: str, dtype, d: int) -> str:
     """The kernel an entry point launches at padded head dim d > 128."""
     if dtype == torch.bfloat16 and d <= 256:
         return WIDE_LIST_KERNEL_OF[kind]
+    if dtype == torch.bfloat16 and kind == "fwd":
+        return WIDE_DSPLIT_KERNEL
     return f"wide_{kind}_kernel"
 
 
@@ -1552,10 +1561,11 @@ def phase_wide(device, peaks, timer, parent=None):
     profiler; ``wide_kernel_of``), max abs and relative norm errors,
     median times with the L2 flushed, bytes, operations and the bound,
     ptxas registers and spills; scaled_dot_product_attention on the bf16
-    D 256 inputs, forward (``library_ms``) and backward, and its forward
-    at D 512, as the yardstick (``wide_library``). With ``parent``, that
-    tree's bf16 entry points at D 192 and 256 beside this tree's
-    (``wide_parent``)."""
+    D 256 and 512 inputs, forward (the forward's ``library_ms``) and
+    backward (dQ's and dK/dV's at D 512), as the yardstick
+    (``wide_library``).
+    With ``parent``, that tree's bf16 entry points at D 192 and 256, and
+    its forwards at D 512, beside this tree's (``wide_parent``)."""
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import block_sparse_attention as bsa
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -1629,12 +1639,18 @@ def phase_wide(device, peaks, timer, parent=None):
                          if kernel.startswith("bsa_") else
                          ptxas_of(reports[fam], kernel, dtype=dtype))
                 library = None
-                if (kind == "fwd" and dtype == torch.bfloat16
-                        and d in (256, 512) and not dropout):
-                    lib = wide_sdpa(q, k, v, do, args[0] if fam == "sparse"
-                                    else None, timer, backward=d == 256)
-                    emit("wide_library", family=fam, case=tag, **lib)
-                    library = lib["sdpa_forward_ms"]
+                if (dtype == torch.bfloat16 and d in (256, 512)
+                        and not dropout):
+                    if kind == "fwd":
+                        lib = wide_sdpa(q, k, v, do, args[0] if fam ==
+                                        "sparse" else None, timer,
+                                        backward=True)
+                        emit("wide_library", family=fam, case=tag, **lib)
+                    # SDPA's backward (dq, dk, dv in one call; only the
+                    # mem-efficient backend takes D 512) is dQ's and
+                    # dK/dV's yardstick at D 512
+                    library = (lib["sdpa_forward_ms"] if kind == "fwd" else
+                               lib["sdpa_backward_ms"] if d == 512 else None)
                 res = dict(family=fam, kind=kind, case=tag, kernel=kernel,
                            kernel_seen=seen, launches=launches, ptxas=ptxas,
                            max_abs_err=max(e for e, _ in errs),
@@ -1648,9 +1664,10 @@ def phase_wide(device, peaks, timer, parent=None):
                 emit("wide", name=f"{fam}_{kind}", **res)
                 results[(fam, kind, tag)] = res
             if (theirs is not None and dtype == torch.bfloat16
-                    and d in (192, 256) and not dropout):
+                    and d in (192, 256, 512) and not dropout):
                 wide_parent(theirs[fam], fam, tag, calls,
-                            (q, k, v, do, lse, delta), args, timer)
+                            (q, k, v, do, lse, delta), args, timer,
+                            ("fwd",) if d == 512 else kinds)
             del q, k, v, do, out, lse, delta
             torch.cuda.empty_cache()
     return results
@@ -1703,11 +1720,12 @@ def wide_sdpa(q, k, v, do, spec, timer, backward: bool):
     return res
 
 
-def wide_parent(mod, fam, tag, calls, tensors, args, timer):
-    """The parent tree's bf16 forward, dQ and dK/dV (``mod``, its flash
-    or block-sparse module) and this tree's on the same inputs, each held
-    against this tree's plain version, then timed in the order parent,
-    this, this, parent."""
+def wide_parent(mod, fam, tag, calls, tensors, args, timer,
+                kinds=("fwd", "dq", "dkv")):
+    """The parent tree's bf16 entry points ``kinds`` of forward, dQ and
+    dK/dV (``mod``, its flash or block-sparse module) and this tree's on
+    the same inputs, each held against this tree's plain version, then
+    timed in the order parent, this, this, parent."""
     q, k, v, do, lse, delta = tensors
     if fam == "flash":
         theirs_args, pfx = args, "flash"
@@ -1723,6 +1741,8 @@ def wide_parent(mod, fam, tag, calls, tensors, args, timer):
         "dkv": lambda: getattr(mod, f"{pfx}_dkv")(
             q, k, v, do, lse, delta, *theirs_args, impl="cuda"),
     }
+    theirs = {kind: theirs[kind] for kind in kinds}
+    calls = {kind: calls[kind] for kind in kinds}
     for kind, call in theirs.items():
         got, want = call(), calls[kind]("torch")
         if torch.is_tensor(got):
@@ -2256,6 +2276,14 @@ def main() -> int:
                 f"{entry}_d256", res["kernel"],
                 "paddle_tpu_torch/ops/csrc/attention_wgmma.cuh",
                 f"{ref}:{line}", count, res, None))
+    # the D-split forward at padded D 512 (the wide phase's bf16 cases)
+    for fam, ref, line in (("flash", fa_ref, 162), ("sparse", bsa_ref, 92)):
+        res = wide[(fam, "fwd", "bfloat16_d512")]
+        (entry, count), = res["launches"].items()
+        entries.append(kernel_entry(
+            f"{entry}_d512", res["kernel"],
+            "paddle_tpu_torch/ops/csrc/attention_wgmma.cuh",
+            f"{ref}:{line}", count, res, res["library_ms"]))
     res = ln["8192x2048_bfloat16"]
     entries.append(kernel_entry(
         "layer_norm_fwd", "ln_fwd_kernel",

@@ -16,10 +16,13 @@
 //                               64-row block whose two warpgroups split
 //                               the products by role (dkv_p_tile_wgmma,
 //                               dkv_ds_tile_wgmma)
+//   bsa_fwd_dsplit_wgmma_kernel the forward at 320..512, both families: a
+//                               64-row block whose two warpgroups split D
 //
 // A block owns a 128-row tile (q rows in the forward and dQ, kv rows in
-// dK/dV; 64 kv rows in bsa_dkv_split_wgmma_kernel) and is two consumer
-// warpgroups of 64 of its rows each; the other
+// dK/dV; 64 rows in bsa_dkv_split_wgmma_kernel and
+// bsa_fwd_dsplit_wgmma_kernel) and is two consumer warpgroups of 64 of
+// its rows each (of all 64, split by role or by D, in those two); the other
 // side's 64-row tiles stream through a ring of shared-memory stages,
 // loaded by TMA (hopper_tiles.cuh's layout contract: 128-byte swizzle,
 // column blocks of 64). Every product is wgmma: operands in shared
@@ -566,6 +569,348 @@ cudaError_t launch_bsa_fwd_wgmma(const void* q, const void* k, const void* v,
       tq, tk, tv, tout, static_cast<float*>(lse), L, sq, sk, causal, scale,
       drop);
   return cudaGetLastError();
+}
+
+// ------------------- the forward past D 256: D split across warpgroups
+//
+// bsa_fwd_dsplit_wgmma_kernel replaces _bsa_fwd_kernel
+// (paddle_tpu/ops/pallas/block_sparse_attention.py:92, pallas_call :146)
+// and _fa_fwd_kernel (paddle_tpu/ops/pallas/flash_attention.py:162,
+// pallas_call :230) in bf16 at padded D 320, 384, 448 and 512: O =
+// softmax(Q K^T scale) V and lse over a list of kv tiles, as
+// bsa_fwd_wgmma_kernel computes them at D <= 256 (the causal offset sk -
+// sq, flash's dropout keep bits, p rounded to bf16 before P V, 0 and lse
+// -inf for a row that sees no column).
+//
+// Why not that kernel: a warpgroup there owns 64 q rows with a full-D fp32
+// accumulator, D / 2 registers a thread (256 at D 512), and a block's
+// 128-row Q tile is 128 KB at D 512. Here a block owns 64 q rows and two
+// consumer warpgroups that split D: warpgroup 0 owns the first
+// ceil(D / 128) 64-column blocks of the output, warpgroup 1 the rest (at
+// D 320 3 and 2, at 448 4 and 3), an accumulator of at most 128
+// registers a thread (ptxas: 202..220 in all, no spills). Per kv tile
+// each warpgroup computes all of S = Q K^T itself (the same wgmma steps
+// on the same tiles: both hold the same bits, so the same m, l and p) and
+// runs P V against its own column blocks of V. That is 1.5x the tile's
+// products of a split of S's depth whose two partials meet in shared
+// memory (kFwdDsplitExchange), but the warpgroups never wait for each
+// other and the ring gets the 32 KB the partials took: on an H100 at
+// chip_smoke's wide shapes it read as fast at flash D 320 and 3-12%
+// faster at the other D 320 and 512 cases (ops/wide_forward_ab.py times
+// both).
+//
+// Shared memory: the 64 x D Q tile (40..64 KB), loaded once by TMA; K and
+// V as ring items of their own (K of walk step t is item 2t, V item
+// 2t + 1), as many slots as 227 KB hold beside Q, up to 4 (4 at D 320, 3
+// at 384 and 448, 2 at 512); thread 0 refills a slot once both
+// warpgroups have released it: K right after S, V after P V. The walk is
+// bsa_fwd_wgmma_kernel's (ListWalk; under causal it stops at the first
+// tile wholly above the block's diagonal, never loaded). Blocks launch
+// heaviest first, every batch-head side by side on x: block-sparse by
+// L.order, flash's dense walk its last 64 q rows first (one 64-row block
+// an SM: an order by batch-head would leave the longest walks of the last
+// batch-heads to the end).
+//
+// Bound on the H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): 4 D FLOP a
+// (q, k) pair over the active pairs, and q, k, v, out once: at flash BH
+// 16, S 1024, D 512, causal 17.2 GFLOP (0.017 ms) against 67 MB (0.020
+// ms, the bound).
+
+// Whether the warpgroups split S's depth and add their two partials
+// through shared memory (true), or each computes all of S (false).
+constexpr bool kFwdDsplitExchange = false;
+constexpr int kXFull = 1, kXEmpty = 2;  // named barriers of the partials
+
+template <int D>
+__host__ __device__ constexpr size_t fwd_dsplit_smem_at(int slots) {
+  return 1024 + (1 + slots) * tile_bytes<D>(kTile) +
+         (kFwdDsplitExchange ? 2 * kTile * kTile * 4 : 0) +
+         (1 + 2 * slots) * 8;
+}
+template <int D>
+__host__ __device__ constexpr int fwd_dsplit_slots() {
+  return fwd_dsplit_smem_at<D>(4) <= 232448   ? 4
+         : fwd_dsplit_smem_at<D>(3) <= 232448 ? 3
+                                              : 2;
+}
+template <int D>
+constexpr size_t fwd_dsplit_smem() {
+  return fwd_dsplit_smem_at<D>(fwd_dsplit_slots<D>());
+}
+static_assert(fwd_dsplit_smem<320>() <= 232448 &&
+                  fwd_dsplit_smem<384>() <= 232448 &&
+                  fwd_dsplit_smem<448>() <= 232448 &&
+                  fwd_dsplit_smem<512>() <= 232448,
+              "a block asks for more than 227 KB of shared memory");
+
+template <int N>
+struct IntC {
+  static constexpr int value = N;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kConsumerThreads, 1)
+bsa_fwd_dsplit_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_out,
+                            float* __restrict__ lse, BlockList L, int sq,
+                            int sk, int causal, float scale, Dropout drop) {
+  constexpr int kBlocks = D / 64;           // column blocks of a tile
+  constexpr int kOwn0 = (kBlocks + 1) / 2;  // warpgroup 0's; 1 owns the rest
+  constexpr int kSlots = fwd_dsplit_slots<D>();
+  constexpr int kTileBytes = tile_bytes<D>(kTile);
+  constexpr int kColBytes = kTile * 128;  // one column block of a tile
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* qs = align_1024(wg_smem);
+  unsigned char* kvs = qs + kTileBytes;  // [kSlots] K or V tiles
+  // [2 warpgroups][kTile / 8][128 threads] partial S, with the exchange
+  float4* xs = reinterpret_cast<float4*>(kvs + kSlots * kTileBytes);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(
+      xs + (kFwdDsplitExchange ? 2 * kTile / 8 * 128 : 0));
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kSlots;
+
+  const int bh = blockIdx.x;
+  int blk = 0, q0;
+  if (L.idx == nullptr) {  // flash's dense walk: the last q rows first
+    q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  } else {
+    const int per = L.blk_own / kTile;
+    blk = L.order[blockIdx.y / per];
+    q0 = blk * L.blk_own + (blockIdx.y % per) * kTile;
+  }
+  const int offset = sk - sq;
+  const int n_t = list_len(L, blk) * (L.blk_other / kTile);
+  const int last_col = q0 + kTile - 1 + offset;
+  // whether walk step t (walk w standing at it) is one of the block's
+  // tiles: under causal the walk ends at the first tile past the block's
+  // last column; lists ascend, so the rest lie past it too
+  const auto in_walk = [&](int t, const ListWalk& w) {
+    return t < n_t && !(causal && w.col() > last_col);
+  };
+  // thread 0's loads: ring item n_ld, K (even) or V (odd) of the walk
+  // step `ahead` stands at
+  ListWalk ahead(L, blk);
+  int n_ld = 0;
+  const auto can_load = [&] { return in_walk(n_ld / 2, ahead); };
+  const auto load_next = [&] {
+    const int s = n_ld % kSlots;
+    mbar_expect_tx(&full[s], kTileBytes);
+#pragma unroll
+    for (int cb = 0; cb < kBlocks; ++cb)
+      tma_load_3d(kvs + s * kTileBytes + cb * kColBytes,
+                  n_ld % 2 ? &tm_v : &tm_k, &full[s], cb * 64, ahead.col(),
+                  bh);
+    if (n_ld++ % 2) ahead.next();
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    mbar_fence_init();
+    mbar_expect_tx(q_full, kTileBytes);
+#pragma unroll
+    for (int cb = 0; cb < kBlocks; ++cb)
+      tma_load_3d(qs + cb * kColBytes, &tm_q, q_full, cb * 64, q0, bh);
+    while (n_ld < kSlots && can_load()) load_next();
+  }
+  __syncthreads();
+  // both warpgroups are done with item j; thread 0 refills its slot with
+  // item j + kSlots
+  const auto release = [&](int j) {
+    const int s = j % kSlots;
+    mbar_arrive(&empty[s]);
+    if (threadIdx.x == 0 && n_ld == j + kSlots && can_load()) {
+      mbar_wait(&empty[s], (j / kSlots) & 1);
+      load_next();
+    }
+  };
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, g = (tid % 32) / 4, tig = tid % 4;
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const uint32_t q_base = smem_u32(qs);
+  const uint32_t key = dropout_key(drop, bh);
+  // also with nothing to walk: the epilogue reuses the Q tile
+  mbar_wait(q_full, 0);
+  // one warpgroup's walk over kOwn column blocks of the output
+  const auto consume = [&](auto own) {
+    constexpr int kOwn = decltype(own)::value;
+    // S's depth: every column block (with the exchange, the other
+    // warpgroup's)
+    constexpr int kSteps = 4 * (kFwdDsplitExchange ? kBlocks - kOwn
+                                                   : kBlocks);
+    const int v_blk = wg == 0 ? 0 : kOwn0;  // the first block it owns
+    const int s_blk = !kFwdDsplitExchange ? 0 : wg == 0 ? kOwn0 : 0;
+    float o[kOwn * 8][4] = {};
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    ListWalk w(L, blk);
+    for (int t = 0; in_walk(t, w); ++t, w.next()) {
+      const int c0 = w.col(), jk = 2 * t, jv = jk + 1;
+      mbar_wait(&full[jk % kSlots], (jk / kSlots) & 1);
+      const uint32_t k_base = smem_u32(kvs + (jk % kSlots) * kTileBytes);
+      float s[kTile / 8][4] = {};
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk)
+        wgmma_ss<kTile>(s, kmajor_desc(q_base, 4 * s_blk + kk, kTile),
+                        kmajor_desc(k_base, 4 * s_blk + kk, kTile), kk > 0);
+      wg_commit();
+      wg_wait<0>();
+      wg_fence_regs(s);
+      release(jk);
+      if (kFwdDsplitExchange) {
+        if (t > 0) named_barrier(kXEmpty, kConsumerThreads);
+#pragma unroll
+        for (int j = 0; j < kTile / 8; ++j)
+          xs[(wg * (kTile / 8) + j) * 128 + tid] =
+              make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+        named_barrier(kXFull, kConsumerThreads);
+#pragma unroll
+        for (int j = 0; j < kTile / 8; ++j) {
+          const float4 x = xs[((1 - wg) * (kTile / 8) + j) * 128 + tid];
+          s[j][0] += x.x;
+          s[j][1] += x.y;
+          s[j][2] += x.z;
+          s[j][3] += x.w;
+        }
+      }
+      // the online softmax, as fwd_tile_wgmma's
+      const bool mask = causal && c0 + kTile - 1 > q0 + offset;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + j * 8 + 2 * tig + (e & 1);
+          float x = s[j][e] * scale;
+          if (mask && rows[e >> 1] + offset < col) x = -INFINITY;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2], m_log2[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m[h], quad_max(mx[h]));
+        const float m_use = safe_max(m_new);
+        m_log2[h] = m_use * kLog2e;
+        alpha[h] = exp2f((m[h] - m_use) * kLog2e);
+        m[h] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(fmaf(s[j][e], kLog2e, -m_log2[e >> 1]));
+          rs[e >> 1] += p;
+          float pd = p;
+          if (drop.on) {
+            const uint32_t bits = dropout_bits(
+                key, rows[e >> 1], c0 + j * 8 + 2 * tig + (e & 1));
+            pd = bits >= drop.threshold ? p / drop.keep_div : 0.f;
+          }
+          s[j][e] = pd;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + quad_sum(rs[h]);
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f))
+#pragma unroll
+        for (int j = 0; j < kOwn * 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+      uint32_t pa[kTile / 16][4];
+      to_a_frags<kTile / 8>(pa, s);  // p rounded to bf16, as the reference
+      mbar_wait(&full[jv % kSlots], (jv / kSlots) & 1);
+      const uint32_t v_base =
+          smem_u32(kvs + (jv % kSlots) * kTileBytes + v_blk * kColBytes);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk)
+        wgmma_rs_t<kOwn * 64>(o, pa[kk], mnmajor_desc(v_base, kk, kTile));
+      wg_commit();
+      wg_wait<0>();
+      wg_fence_regs(o);
+      release(jv);
+    }
+    // out through the warpgroup's column blocks of the Q tile, once
+    // neither warpgroup reads Q (the last exchange says so where there is
+    // one), and one TMA store a block
+    if (!kFwdDsplitExchange) named_barrier(kXFull, kConsumerThreads);
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) inv[h] = l[h] > 0.f ? 1.f / l[h] : 0.f;
+    stage_acc_bf16<kOwn * 64>(qs + v_blk * kColBytes, kTile, 0, o, inv);
+    fence_async_shared();
+    named_barrier(3 + wg, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int cb = 0; cb < kOwn; ++cb)
+        tma_store_3d(&tm_out, qs + (v_blk + cb) * kColBytes,
+                     (v_blk + cb) * 64, q0, bh);
+      tma_store_drain();
+    }
+    if (wg == 0 && tig == 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        lse[(size_t)bh * sq + rows[h]] =
+            l[h] > 0.f ? m[h] + logf(l[h]) : -INFINITY;
+  };
+  if (wg == 0)
+    consume(IntC<kOwn0>{});
+  else
+    consume(IntC<kBlocks - kOwn0>{});
+}
+
+template <int D>
+cudaError_t launch_fwd_dsplit_wgmma_at(const void* q, const void* k,
+                                       const void* v, void* out, void* lse,
+                                       BlockList L, int bh, int sq, int sk,
+                                       int causal, float scale, Dropout drop,
+                                       cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tout;
+  cudaError_t err = bf16_map(&tq, q, bh, sq, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tk, k, bh, sk, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tv, v, bh, sk, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tout, out, bh, sq, D, kTile);
+  if (err != cudaSuccess) return err;
+  auto kernel = bsa_fwd_dsplit_wgmma_kernel<D>;
+  err = set_smem(kernel, fwd_dsplit_smem<D>());
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(bh, sq / kTile), kConsumerThreads, fwd_dsplit_smem<D>(),
+           st>>>(tq, tk, tv, tout, static_cast<float*>(lse), L, sq, sk,
+                 causal, scale, drop);
+  return cudaGetLastError();
+}
+
+// The bf16 forward at padded head dim d 320, 384, 448 or 512 over a
+// block-sparse list (block sizes 128-multiples that tile both sequences,
+// L.order set) or dense_list(sk) (lengths 64-multiples); any other d is
+// refused.
+inline cudaError_t launch_fwd_dsplit_wgmma(int d, const void* q,
+                                           const void* k, const void* v,
+                                           void* out, void* lse, BlockList L,
+                                           int bh, int sq, int sk, int causal,
+                                           float scale, Dropout drop,
+                                           cudaStream_t st) {
+  switch (d) {
+    case 320:
+      return launch_fwd_dsplit_wgmma_at<320>(q, k, v, out, lse, L, bh, sq,
+                                             sk, causal, scale, drop, st);
+    case 384:
+      return launch_fwd_dsplit_wgmma_at<384>(q, k, v, out, lse, L, bh, sq,
+                                             sk, causal, scale, drop, st);
+    case 448:
+      return launch_fwd_dsplit_wgmma_at<448>(q, k, v, out, lse, L, bh, sq,
+                                             sk, causal, scale, drop, st);
+    case 512:
+      return launch_fwd_dsplit_wgmma_at<512>(q, k, v, out, lse, L, bh, sq,
+                                             sk, causal, scale, drop, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------- dQ over a BlockList

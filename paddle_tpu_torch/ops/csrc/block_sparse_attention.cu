@@ -15,8 +15,10 @@
 //                           bsa_dkv_wgmma_kernel (below)
 //   bf16 at 192, 256        bsa_fwd_wgmma_kernel, bsa_dq_wgmma_kernel,
 //                           bsa_dkv_split_wgmma_kernel (attention_wgmma.cuh)
-//   fp32 at 192..512, bf16  the wide kernels of wide_attention.cuh
-//   at 320..512
+//   bf16 at 320..512        bsa_fwd_dsplit_wgmma_kernel (attention_wgmma.cuh,
+//                           D split across warpgroups); dQ and dK/dV the
+//                           wide kernels of wide_attention.cuh
+//   fp32 at 192..512        the wide kernels of wide_attention.cuh
 // The TPU grid is (BH, n blocks, list slot): each step's BlockSpec index
 // map reads the list, so inactive blocks are never copied from HBM, and
 // the sums ride in VMEM scratch from slot to slot. Here one thread block
@@ -458,8 +460,9 @@ BlockList make_list(const void* idx, const void* count, const void* order,
 // kernels (FP32), 1 = bfloat16 the tensor-core kernels (BF16), at
 // head_dim 64 or 128; head_dim 192..512 (multiples of 64) runs the wide
 // kernels (WIDE, wide_attention.cuh) in either dtype, except bf16 at 192
-// and 256 (the list kernels of attention_wgmma.cuh, picked in each entry
-// point before this dispatch). The arguments are
+// and 256 (the list kernels of attention_wgmma.cuh) and the bf16 forward
+// at 320..512 (bsa_fwd_dsplit_wgmma_kernel), picked in each entry point
+// before this dispatch. The arguments are
 // the kernels' up to sq, sk; causal, scale and the stream follow (with
 // head_dim before them for WIDE). Everything else is refused with
 // cudaErrorInvalidValue before any launch.
@@ -505,6 +508,10 @@ int bsa_fwd_launch(const void* q, const void* k, const void* v, void* out,
   if (dtype == 1 && head_dim == 256)
     return (int)launch_fwd_wgmma<256>(q, k, v, out, lse, L, bh, sq, sk,
                                       causal, scale, st);
+  // bf16 at 320..512: D split across two warpgroups
+  if (dtype == 1 && head_dim > 256 && wide_head_dim(head_dim))
+    return (int)launch_fwd_dsplit_wgmma(head_dim, q, k, v, out, lse, L, bh,
+                                        sq, sk, causal, scale, Dropout{}, st);
   BSA_DISPATCH(launch_fwd, launch_fwd_wgmma, launch_wide_fwd, q, k, v, out,
                lse, L, bh, sq, sk);
 }

@@ -1,8 +1,9 @@
 // Flash attention for Hopper (sm_90a), written by hand: forward, dQ and
 // dK/dV, on [BH, S, D] tensors (D padded to a multiple of 64 up to 512 by
 // the wrapper; bf16 at D 192 and 256 runs the list kernels of
-// attention_wgmma.cuh over a dense walk, fp32 past 128 and bf16 at
-// 320..512 the wide kernels of wide_attention.cuh).
+// attention_wgmma.cuh over a dense walk, the bf16 forward at 320..512
+// that header's bsa_fwd_dsplit_wgmma_kernel, and fp32 past 128 and the
+// bf16 dQ and dK/dV at 320..512 the wide kernels of wide_attention.cuh).
 //
 // Replaces the three Pallas TPU kernels of
 // paddle_tpu/ops/pallas/flash_attention.py:
@@ -11,7 +12,8 @@
 //   fa_dkv_kernel, fa_dkv_wgmma_kernel  <- _fa_dkv_kernel (:316, call :397)
 // and, in bf16 at padded D 192 and 256, the list kernels of
 // attention_wgmma.cuh over a dense walk: bsa_fwd_wgmma_kernel,
-// bsa_dq_wgmma_kernel and bsa_dkv_split_wgmma_kernel.
+// bsa_dq_wgmma_kernel and bsa_dkv_split_wgmma_kernel; the bf16 forward at
+// 320..512 is bsa_fwd_dsplit_wgmma_kernel (D split across warpgroups).
 // Each computes what its TPU kernel computes; none is carried over block
 // by block. The TPU grids walk the inner tile loop in order and carry
 // (m, l, acc) or the dq / dk,dv sums in VMEM scratch across grid steps; on
@@ -730,8 +732,9 @@ Dropout make_dropout(unsigned seed, unsigned threshold, float keep_div,
 // kernels (FP32), 1 = bfloat16 the tensor-core kernels (BF16), at head_dim
 // 64 or 128; head_dim 192..512 (multiples of 64) runs the wide kernels
 // (WIDE) in either dtype, over a dense walk, except bf16 at 192 and 256
-// (the list kernels of attention_wgmma.cuh, picked in each entry point
-// before this dispatch).
+// (the list kernels of attention_wgmma.cuh) and the bf16 forward at
+// 320..512 (bsa_fwd_dsplit_wgmma_kernel), picked in each entry point
+// before this dispatch.
 // Everything else is refused with cudaErrorInvalidValue before any
 // launch.
 #define FA_DISPATCH(FP32, BF16, WIDE, WALK, ...)                           \
@@ -768,6 +771,11 @@ int fa_fwd_launch(const void* q, const void* k, const void* v, void* out,
   if (dtype == 1 && head_dim == 256)
     return (int)launch_bsa_fwd_wgmma<256>(q, k, v, out, lse, dense_list(sk),
                                           bh, sq, sk, causal, scale, drop, st);
+  // bf16 at 320..512: D split across two warpgroups
+  if (dtype == 1 && head_dim > 256 && wide_head_dim(head_dim))
+    return (int)launch_fwd_dsplit_wgmma(head_dim, q, k, v, out, lse,
+                                        dense_list(sk), bh, sq, sk, causal,
+                                        scale, drop, st);
   FA_DISPATCH(launch_fwd, launch_fwd_wgmma, launch_wide_fwd,
               (q, k, v, out, lse, dense_list(sk), bh, sq, sk, head_dim,
                causal, scale, drop, st),

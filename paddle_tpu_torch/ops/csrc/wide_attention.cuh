@@ -9,8 +9,10 @@
 // _fa_dkv_kernel (paddle_tpu/ops/pallas/flash_attention.py) and
 // _bsa_fwd_kernel, _bsa_dq_kernel and _bsa_dkv_kernel
 // (paddle_tpu/ops/pallas/block_sparse_attention.py). They run fp32 at
-// every padded head dim past 128 and bf16 at 320..512; bf16 at 192 and
-// 256 runs the wgmma list kernels of attention_wgmma.cuh instead.
+// every padded head dim past 128 and the bf16 dQ and dK/dV at 320..512;
+// bf16 at 192 and 256 runs the wgmma list kernels of attention_wgmma.cuh
+// instead, and the bf16 forward at 320..512 that header's
+// bsa_fwd_dsplit_wgmma_kernel (D split across two warpgroups).
 //
 // Why a path of their own: at D = 512 a 64-row fp32 tile is 128 KB, so
 // the narrow kernels' tiles (dQ holds four) do not fit the 227 KB of

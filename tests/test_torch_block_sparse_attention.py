@@ -74,6 +74,9 @@ BLOCK_CASES = [
      True),
     (1, 512, 1, 256, np.array([[1, 1, 0, 0], [1, 0, 1, 1]], bool), True),
     (1, 512, 1, 256, np.array([[1, 1, 0, 0], [1, 0, 1, 1]], bool), False),
+    # past 256 the card's bf16 forward splits D across two warpgroups
+    # (bsa_fwd_dsplit_wgmma_kernel), 256 columns each at D 512
+    (1, 256, 1, 512, np.array([[1, 0], [1, 1]], bool), True),
 ]
 
 

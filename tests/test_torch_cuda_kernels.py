@@ -1148,6 +1148,136 @@ def test_block_sparse_limit_rejects_a_kernel_that_skips_a_block(
         assert right[case] <= REL_TOL[torch.bfloat16] < broken_err[case]
 
 
+# bsa_fwd_dsplit_wgmma_kernel, the bf16 forward at padded D 320..512:
+# flash (bh, sq, sk, causal, dropout) and block-sparse (bh, sq, sk, blk_q,
+# blk_k, causal, kv block nothing attends) cases
+DSPLIT_FLASH_CASES = [
+    (2, 256, 256, True, 0.0),
+    (2, 256, 256, False, 0.0),
+    (1, 256, 384, True, 0.0),     # causal offset 128
+    (2, 320, 128, False, 0.0),    # sq > sk
+    (1, 192, 320, True, 0.0),     # an odd count of 64-row tiles
+    (1, 512, 512, True, 0.2),     # causal dropout
+]
+DSPLIT_SPARSE_CASES = [
+    (2, 1024, 1024, 256, 128, False, 1),
+    (2, 1024, 1024, 128, 256, True, None),
+    (1, 1024, 768, 512, 256, True, None),  # sq > sk: rows see none
+]
+
+
+def _forward_agrees(fwd, q, k, v, args, name, dtype):
+    """One forward call launches ``name`` once, and its result (out, lse)
+    is within the limits of the plain version's; rows that see no column
+    are 0, lse -inf. (Which kernel ran is read from the profiler in
+    test_forward_dispatch_takes_the_wgmma_list_kernel: a process records
+    device activity in a limited number of profiler windows.)"""
+    _build.reset_launches()
+    out, lse = fwd(q, k, v, *args)
+    torch.cuda.synchronize()
+    assert _build.launches() == {name: 1}
+    want, want_lse = fwd(q, k, v, *args, impl="torch")
+    _close(out, want, dtype)
+    _close_lse(lse, want_lse)
+    assert (out[torch.isinf(want_lse)] == 0).all()
+
+
+@pytest.mark.parametrize("d", [320, 384, 448, 512])
+@pytest.mark.parametrize("bh,sq,sk,causal,dropout", DSPLIT_FLASH_CASES)
+def test_dsplit_forward_matches_plain_flash(card, bh, sq, sk, causal,
+                                            dropout, d):
+    """The bf16 flash forward past D 256 (bsa_fwd_dsplit_wgmma_kernel,
+    whose two warpgroups split D: 3 + 2, 3 + 3, 4 + 3, 4 + 4 column blocks
+    of 64) launches once and agrees with the plain version, dropout keep
+    bits and causal offsets included."""
+    from paddle_tpu_torch.ops.flash_attention import KERNEL_NAMES, flash_fwd
+
+    q, k, v, _ = flash_inputs(bh, sq, sk, d, torch.bfloat16, card,
+                              seed=sq + sk + d)
+    _forward_agrees(flash_fwd, q, k, v, (causal, d ** -0.5, dropout, 77),
+                    KERNEL_NAMES[0], torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [320, 384, 448, 512])
+@pytest.mark.parametrize("bh,sq,sk,blk_q,blk_k,causal,empty",
+                         DSPLIT_SPARSE_CASES)
+def test_dsplit_forward_matches_plain_sparse(card, bh, sq, sk, blk_q,
+                                             blk_k, causal, empty, d):
+    """The bf16 block-sparse forward past D 256
+    (bsa_fwd_dsplit_wgmma_kernel over the q-major lists) launches once and
+    agrees with the plain version, rows that see no column included."""
+    from paddle_tpu_torch.ops.block_sparse_attention import (KERNEL_NAMES,
+                                                             bsa_fwd)
+
+    spec, q, k, v, _ = bsa_case(bh, sq, sk, d, blk_q, blk_k, causal, empty,
+                                torch.bfloat16, card)
+    _forward_agrees(bsa_fwd, q, k, v, (spec, causal, d ** -0.5),
+                    KERNEL_NAMES[0], torch.bfloat16)
+
+
+# bsa_fwd_dsplit_wgmma_kernel broken two ways: kind -> (file, kernel, a
+# line of it, the line broken)
+DSPLIT_MUTATIONS = {
+    # warpgroup 1's scores leave Q K^T's last 64 columns of depth out
+    "s_depth": ("attention_wgmma.cuh", "bsa_fwd_dsplit_wgmma_kernel",
+                "for (int kk = 0; kk < kSteps; ++kk)",
+                "for (int kk = 0; kk < kSteps - 4 * wg; ++kk)"),
+    # warpgroup 1's column offset into V: both read V's first blocks
+    "v_columns": ("attention_wgmma.cuh", "bsa_fwd_dsplit_wgmma_kernel",
+                  "kTileBytes + v_blk * kColBytes);",
+                  "kTileBytes);"),
+}
+
+
+def test_dsplit_forward_limit_rejects_a_short_depth_or_offset(
+        card, tmp_path, monkeypatch):
+    """The bf16 limit tells bsa_fwd_dsplit_wgmma_kernel from a broken
+    one: the flash source is rebuilt beside a copy of attention_wgmma.cuh
+    whose second warpgroup leaves the last 64 columns of Q and K out of
+    its scores, and beside one whose second warpgroup multiplies p by V's
+    first column blocks; at flash's
+    wide shape (BH 16, S 1024, causal) at D 512 and D 320 each result
+    must miss REL_TOL, while the right kernel meets it. Prints both
+    readings."""
+    import ctypes
+
+    from paddle_tpu_torch.ops.flash_attention import flash_fwd
+
+    cases = {}
+    for d in (320, 512):
+        q, k, v, _ = flash_inputs(16, 1024, 1024, d, torch.bfloat16, card,
+                                  seed=41 + d)
+        args = (True, d ** -0.5, 0.0, 0)
+        cases[d] = (lambda q=q, k=k, v=v, a=args, **kw:
+                    flash_fwd(q, k, v, *a, **kw)[0])
+    want = {d: fn(impl="torch") for d, fn in cases.items()}
+    right = {d: rel_err(fn(), want[d]) for d, fn in cases.items()}
+    procs = {kind: _build_mutant(kind, tmp_path / kind, DSPLIT_MUTATIONS,
+                                 "flash_attention.cu")
+             for kind in DSPLIT_MUTATIONS}
+    broken_err = {}
+    for kind, (lib, proc) in procs.items():
+        out = proc.communicate()[0]
+        assert proc.returncode == 0, out.decode()[-2000:]
+        monkeypatch.setitem(_build._LIBS, "flash_attention",
+                            ctypes.CDLL(str(lib)))
+        for d, fn in cases.items():
+            broken_err[kind, d] = rel_err(fn(), want[d])
+    print(f"D-split forward bf16 rel err, right kernel: {right}; broken: "
+          f"{broken_err}; limit {REL_TOL[torch.bfloat16]}")
+    for d in cases:
+        assert right[d] <= REL_TOL[torch.bfloat16]
+    for err in broken_err.values():
+        assert err > REL_TOL[torch.bfloat16]
+
+
+# The tests below that read kernel names from torch.profiler come after
+# every test that launches a kernel for the first time: a kernel first
+# launched (its module loaded, lazily) after a profiler window has torn
+# CUPTI down leaves the later windows of the process without device
+# activity (an H100 under torch 2.11 and CUDA 12.8).
+
+
 def _device_kernels(call):
     """The device kernels one ``call()`` ran, by name (profiler)."""
     torch.cuda.synchronize()
@@ -1169,13 +1299,15 @@ def _ran(kernel: str, names) -> bool:
 @pytest.mark.parametrize("dtype,d", [
     (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.bfloat16, 192),
     (torch.bfloat16, 256), (torch.bfloat16, 320), (torch.bfloat16, 512),
-    (torch.float32, 128), (torch.float32, 256)])
+    (torch.float32, 128), (torch.float32, 256), (torch.bfloat16, 384),
+    (torch.bfloat16, 448)])
 def test_forward_dispatch_takes_the_wgmma_list_kernel(card, family, dtype,
                                                        d):
     """The forward's dispatch: bsa_fwd_wgmma_kernel runs the bf16
     block-sparse forward at padded D 64..256 and the bf16 flash forward at
     192 and 256; fa_fwd_wgmma_kernel the bf16 flash forward at 64 and
-    128; bf16 at 320 and 512 and fp32 at every D stay on their kernels
+    128; bsa_fwd_dsplit_wgmma_kernel the bf16 forward of both families at
+    320, 384, 448 and 512; fp32 stays on its kernels at every D
     (wide_fwd_kernel past 128). One launch, counted, within the limits."""
     from paddle_tpu_torch.ops.block_sparse_attention import (
         KERNEL_NAMES as BSA_NAMES, bsa_fwd)
@@ -1196,7 +1328,9 @@ def test_forward_dispatch_takes_the_wgmma_list_kernel(card, family, dtype,
     ran = _device_kernels(lambda: fwd(q, k, v, *args))
     assert _build.launches() == {name: 1}
     bf16 = dtype == torch.bfloat16
-    if bf16 and d <= 256 and (family == "sparse" or d > 128):
+    if bf16 and d > 256:
+        want = "bsa_fwd_dsplit_wgmma_kernel"
+    elif bf16 and d <= 256 and (family == "sparse" or d > 128):
         want = "bsa_fwd_wgmma_kernel"
     elif bf16 and d <= 128:
         want = "fa_fwd_wgmma_kernel"

@@ -60,6 +60,10 @@ CASES = [
     (1, 256, 256, 2, 256, True, 0.0),
     (1, 256, 256, 2, 256, False, 0.3),   # dropout at D = 256
     (1, 256, 384, 2, 192, True, 0.0),    # causal offset 128 at D = 192
+    # past 256 the card's bf16 forward splits D across two warpgroups
+    # (bsa_fwd_dsplit_wgmma_kernel): 192 + 128 columns at D 320
+    (1, 256, 256, 1, 320, True, 0.0),
+    (1, 128, 256, 1, 512, True, 0.0),    # causal offset 128 at D = 512
 ]
 
 
