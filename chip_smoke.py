@@ -1562,8 +1562,9 @@ def phase_wide(device, peaks, timer, parent=None):
     median times with the L2 flushed, bytes, operations and the bound,
     ptxas registers and spills; scaled_dot_product_attention on the bf16
     D 256 and 512 inputs, forward (the forward's ``library_ms``) and
-    backward (dQ's and dK/dV's at D 512), as the yardstick
-    (``wide_library``).
+    backward under each backend (``wide_library``; the fastest beside dQ
+    and dK/dV as ``sdpa_backward_ms``, whose ``library_ms`` is null: no
+    one call computes either alone).
     With ``parent``, that tree's bf16 entry points at D 192 and 256, and
     its forwards at D 512, beside this tree's (``wide_parent``)."""
     from paddle_tpu_torch.ops import _build
@@ -1638,7 +1639,11 @@ def phase_wide(device, peaks, timer, parent=None):
                 ptxas = (ptxas_of(reports[fam], kernel, d)
                          if kernel.startswith("bsa_") else
                          ptxas_of(reports[fam], kernel, dtype=dtype))
-                library = None
+                # SDPA's forward is the forward's library call; its
+                # backward computes dq, dk and dv in one call, no one
+                # PyTorch call computes dQ or dK/dV alone: the fastest
+                # backend's backward is kept beside them as a yardstick
+                library, yardstick = None, {}
                 if (dtype == torch.bfloat16 and d in (256, 512)
                         and not dropout):
                     if kind == "fwd":
@@ -1646,11 +1651,9 @@ def phase_wide(device, peaks, timer, parent=None):
                                         "sparse" else None, timer,
                                         backward=True)
                         emit("wide_library", family=fam, case=tag, **lib)
-                    # SDPA's backward (dq, dk, dv in one call; only the
-                    # mem-efficient backend takes D 512) is dQ's and
-                    # dK/dV's yardstick at D 512
-                    library = (lib["sdpa_forward_ms"] if kind == "fwd" else
-                               lib["sdpa_backward_ms"] if d == 512 else None)
+                        library = lib["sdpa_forward_ms"]
+                    else:
+                        yardstick = fastest_sdpa_backward(lib)
                 res = dict(family=fam, kind=kind, case=tag, kernel=kernel,
                            kernel_seen=seen, launches=launches, ptxas=ptxas,
                            max_abs_err=max(e for e, _ in errs),
@@ -1659,7 +1662,7 @@ def phase_wide(device, peaks, timer, parent=None):
                            causal=causal, dropout=dropout,
                            ms=timer.median_ms(lambda: call("cuda")),
                            plain_ms=timer.median_ms(lambda: call("torch")),
-                           library_ms=library,
+                           library_ms=library, **yardstick,
                            **bound_of(*work, dtype, peaks))
                 emit("wide", name=f"{fam}_{kind}", **res)
                 results[(fam, kind, tag)] = res
@@ -1718,6 +1721,15 @@ def wide_sdpa(q, k, v, do, spec, timer, backward: bool):
             except RuntimeError as e:
                 res["backends"][backend.name] = "refused: " + str(e)[:160]
     return res
+
+
+def fastest_sdpa_backward(lib):
+    """The least of ``wide_sdpa``'s backward times over the backends that
+    took the inputs, and the backend's name."""
+    runs = {name: got["sdpa_backward_ms"]
+            for name, got in lib["backends"].items() if isinstance(got, dict)}
+    name = min(runs, key=runs.get)
+    return dict(sdpa_backward_ms=runs[name], sdpa_backward_backend=name)
 
 
 def wide_parent(mod, fam, tag, calls, tensors, args, timer,

@@ -2,7 +2,7 @@
 // (flash_attention.cu) and the block-sparse kernels
 // (block_sparse_attention.cu), which differ only in the tiles they walk:
 //   fwd_tile_wgmma   online softmax over one kv tile (fa_fwd_wgmma_kernel,
-//                    bsa_fwd_wgmma_kernel)
+//                    bsa_fwd_wgmma_kernel, bsa_fwd_dsplit_wgmma_kernel)
 //   dq_tile_wgmma    dq += ds k over one kv tile (fa_dq_wgmma_kernel,
 //                    bsa_dq_wgmma_kernel)
 //   dkv_tile_wgmma   dv += p^T dO, dk += ds^T q over one q tile
@@ -90,24 +90,36 @@ constexpr size_t dq_wgmma_smem() {
          2 * kDqStages * tile_bytes<D>(kTile) + (1 + 2 * kDqStages) * 8;
 }
 
+// A wait for nothing: the tile's V is in shared memory before its S.
+struct NoWait {
+  __device__ void operator()() const {}
+};
+
 // One kv tile (K at k_base, V at v_base, 64 rows each) against the
-// warpgroup's 64 q rows (at q_base in the block's 128-row Q tile): the
-// online softmax, with S = Q K^T and O += P V as wgmma.
-template <int D>
+// warpgroup's 64 q rows (at q_base in a Q tile of QRows rows, D deep):
+// the online softmax, with S = Q K^T and O += P V as wgmma. O holds N
+// columns of the output, V's from v_base: all D, or a warpgroup's share
+// where two split D. after_s() runs once S is in registers (a caller
+// whose K and V are apart releases K there), before_pv() once p is ready
+// and before P V (such a caller waits for V there).
+template <int D, int N = D, int QRows = kWgBlock, typename AfterS = NoWait,
+          typename BeforePV = NoWait>
 __device__ __forceinline__ void fwd_tile_wgmma(
-    float (&o)[D / 8][4], float (&m)[2], float (&l)[2], uint32_t q_base,
+    float (&o)[N / 8][4], float (&m)[2], float (&l)[2], uint32_t q_base,
     uint32_t k_base, uint32_t v_base, const int (&rows)[2], int c0,
-    bool mask, int offset, float scale, const Dropout& drop, uint32_t key) {
+    bool mask, int offset, float scale, const Dropout& drop, uint32_t key,
+    const AfterS& after_s = AfterS{}, const BeforePV& before_pv = BeforePV{}) {
   const int tig = threadIdx.x % 4;
   float s[kTile / 8][4] = {};
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<kTile>(s, kmajor_desc(q_base, kk, kWgBlock),
+    wgmma_ss<kTile>(s, kmajor_desc(q_base, kk, QRows),
                     kmajor_desc(k_base, kk, kTile), kk > 0);
   wg_commit();
   wg_wait<0>();
   wg_fence_regs(s);
+  after_s();
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int j = 0; j < kTile / 8; ++j)
@@ -149,24 +161,20 @@ __device__ __forceinline__ void fwd_tile_wgmma(
   // row of the warp has a new one
   if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f))
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < N / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
   uint32_t pa[kTile / 16][4];
   to_a_frags<kTile / 8>(pa, s);  // p rounded to bf16, as the reference
+  before_pv();
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < kTile / 16; ++kk)
-    wgmma_rs_t<D>(o, pa[kk], mnmajor_desc(v_base, kk, kTile));
+    wgmma_rs_t<N>(o, pa[kk], mnmajor_desc(v_base, kk, kTile));
   wg_commit();
   wg_wait<0>();
   wg_fence_regs(o);
 }
-
-// A wait for nothing: dq_tile_wgmma's V is in shared memory before S.
-struct NoWait {
-  __device__ void operator()() const {}
-};
 
 // One kv tile (K at k_base, V at v_base, 64 rows each) against the
 // warpgroup's 64 q rows rows[h] (Q, dO at q_base, do_base in the block's
@@ -588,23 +596,21 @@ cudaError_t launch_bsa_fwd_wgmma(const void* q, const void* k, const void* v,
 // consumer warpgroups that split D: warpgroup 0 owns the first
 // ceil(D / 128) 64-column blocks of the output, warpgroup 1 the rest (at
 // D 320 3 and 2, at 448 4 and 3), an accumulator of at most 128
-// registers a thread (ptxas: 202..220 in all, no spills). Per kv tile
-// each warpgroup computes all of S = Q K^T itself (the same wgmma steps
-// on the same tiles: both hold the same bits, so the same m, l and p) and
-// runs P V against its own column blocks of V. That is 1.5x the tile's
+// registers a thread. Per kv tile each warpgroup computes all of S = Q
+// K^T itself (the same wgmma steps on the same tiles: both hold the same
+// bits, so the same m, l and p) and runs P V against its own column
+// blocks of V (fwd_tile_wgmma at width 64 kOwn). That is 1.5x the tile's
 // products of a split of S's depth whose two partials meet in shared
-// memory (kFwdDsplitExchange), but the warpgroups never wait for each
-// other and the ring gets the 32 KB the partials took: on an H100 at
-// chip_smoke's wide shapes it read as fast at flash D 320 and 3-12%
-// faster at the other D 320 and 512 cases (ops/wide_forward_ab.py times
-// both).
+// memory, but the warpgroups never wait for each other and the ring gets
+// the 32 KB the partials would take; on an H100 the split read as fast or
+// slower.
 //
 // Shared memory: the 64 x D Q tile (40..64 KB), loaded once by TMA; K and
 // V as ring items of their own (K of walk step t is item 2t, V item
 // 2t + 1), as many slots as 227 KB hold beside Q, up to 4 (4 at D 320, 3
 // at 384 and 448, 2 at 512); thread 0 refills a slot once both
-// warpgroups have released it: K right after S, V after P V. The walk is
-// bsa_fwd_wgmma_kernel's (ListWalk; under causal it stops at the first
+// warpgroups have released it: K right after S, V after P V. The walk
+// is bsa_fwd_wgmma_kernel's (ListWalk; under causal it stops at the first
 // tile wholly above the block's diagonal, never loaded). Blocks launch
 // heaviest first, every batch-head side by side on x: block-sparse by
 // L.order, flash's dense walk its last 64 q rows first (one 64-row block
@@ -616,16 +622,9 @@ cudaError_t launch_bsa_fwd_wgmma(const void* q, const void* k, const void* v,
 // 16, S 1024, D 512, causal 17.2 GFLOP (0.017 ms) against 67 MB (0.020
 // ms, the bound).
 
-// Whether the warpgroups split S's depth and add their two partials
-// through shared memory (true), or each computes all of S (false).
-constexpr bool kFwdDsplitExchange = false;
-constexpr int kXFull = 1, kXEmpty = 2;  // named barriers of the partials
-
 template <int D>
 __host__ __device__ constexpr size_t fwd_dsplit_smem_at(int slots) {
-  return 1024 + (1 + slots) * tile_bytes<D>(kTile) +
-         (kFwdDsplitExchange ? 2 * kTile * kTile * 4 : 0) +
-         (1 + 2 * slots) * 8;
+  return 1024 + (1 + slots) * tile_bytes<D>(kTile) + (1 + 2 * slots) * 8;
 }
 template <int D>
 __host__ __device__ constexpr int fwd_dsplit_slots() {
@@ -661,13 +660,11 @@ bsa_fwd_dsplit_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   constexpr int kSlots = fwd_dsplit_slots<D>();
   constexpr int kTileBytes = tile_bytes<D>(kTile);
   constexpr int kColBytes = kTile * 128;  // one column block of a tile
+  constexpr int kQRead = 1;  // named barrier: neither warpgroup reads Q
   extern __shared__ unsigned char wg_smem[];
   unsigned char* qs = align_1024(wg_smem);
   unsigned char* kvs = qs + kTileBytes;  // [kSlots] K or V tiles
-  // [2 warpgroups][kTile / 8][128 threads] partial S, with the exchange
-  float4* xs = reinterpret_cast<float4*>(kvs + kSlots * kTileBytes);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(
-      xs + (kFwdDsplitExchange ? 2 * kTile / 8 * 128 : 0));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kvs + kSlots * kTileBytes);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + kSlots;
 
@@ -740,106 +737,25 @@ bsa_fwd_dsplit_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // one warpgroup's walk over kOwn column blocks of the output
   const auto consume = [&](auto own) {
     constexpr int kOwn = decltype(own)::value;
-    // S's depth: every column block (with the exchange, the other
-    // warpgroup's)
-    constexpr int kSteps = 4 * (kFwdDsplitExchange ? kBlocks - kOwn
-                                                   : kBlocks);
     const int v_blk = wg == 0 ? 0 : kOwn0;  // the first block it owns
-    const int s_blk = !kFwdDsplitExchange ? 0 : wg == 0 ? kOwn0 : 0;
     float o[kOwn * 8][4] = {};
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     ListWalk w(L, blk);
     for (int t = 0; in_walk(t, w); ++t, w.next()) {
       const int c0 = w.col(), jk = 2 * t, jv = jk + 1;
       mbar_wait(&full[jk % kSlots], (jk / kSlots) & 1);
-      const uint32_t k_base = smem_u32(kvs + (jk % kSlots) * kTileBytes);
-      float s[kTile / 8][4] = {};
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk)
-        wgmma_ss<kTile>(s, kmajor_desc(q_base, 4 * s_blk + kk, kTile),
-                        kmajor_desc(k_base, 4 * s_blk + kk, kTile), kk > 0);
-      wg_commit();
-      wg_wait<0>();
-      wg_fence_regs(s);
-      release(jk);
-      if (kFwdDsplitExchange) {
-        if (t > 0) named_barrier(kXEmpty, kConsumerThreads);
-#pragma unroll
-        for (int j = 0; j < kTile / 8; ++j)
-          xs[(wg * (kTile / 8) + j) * 128 + tid] =
-              make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
-        named_barrier(kXFull, kConsumerThreads);
-#pragma unroll
-        for (int j = 0; j < kTile / 8; ++j) {
-          const float4 x = xs[((1 - wg) * (kTile / 8) + j) * 128 + tid];
-          s[j][0] += x.x;
-          s[j][1] += x.y;
-          s[j][2] += x.z;
-          s[j][3] += x.w;
-        }
-      }
-      // the online softmax, as fwd_tile_wgmma's
-      const bool mask = causal && c0 + kTile - 1 > q0 + offset;
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c0 + j * 8 + 2 * tig + (e & 1);
-          float x = s[j][e] * scale;
-          if (mask && rows[e >> 1] + offset < col) x = -INFINITY;
-          s[j][e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-      float alpha[2], m_log2[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float m_new = fmaxf(m[h], quad_max(mx[h]));
-        const float m_use = safe_max(m_new);
-        m_log2[h] = m_use * kLog2e;
-        alpha[h] = exp2f((m[h] - m_use) * kLog2e);
-        m[h] = m_new;
-      }
-#pragma unroll
-      for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(fmaf(s[j][e], kLog2e, -m_log2[e >> 1]));
-          rs[e >> 1] += p;
-          float pd = p;
-          if (drop.on) {
-            const uint32_t bits = dropout_bits(
-                key, rows[e >> 1], c0 + j * 8 + 2 * tig + (e & 1));
-            pd = bits >= drop.threshold ? p / drop.keep_div : 0.f;
-          }
-          s[j][e] = pd;
-        }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + quad_sum(rs[h]);
-      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f))
-#pragma unroll
-        for (int j = 0; j < kOwn * 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
-      uint32_t pa[kTile / 16][4];
-      to_a_frags<kTile / 8>(pa, s);  // p rounded to bf16, as the reference
-      mbar_wait(&full[jv % kSlots], (jv / kSlots) & 1);
       const uint32_t v_base =
           smem_u32(kvs + (jv % kSlots) * kTileBytes + v_blk * kColBytes);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk)
-        wgmma_rs_t<kOwn * 64>(o, pa[kk], mnmajor_desc(v_base, kk, kTile));
-      wg_commit();
-      wg_wait<0>();
-      wg_fence_regs(o);
+      fwd_tile_wgmma<D, kOwn * 64, kTile>(
+          o, m, l, q_base, smem_u32(kvs + (jk % kSlots) * kTileBytes),
+          v_base, rows, c0, causal && c0 + kTile - 1 > q0 + offset, offset,
+          scale, drop, key, [&] { release(jk); },
+          [&] { mbar_wait(&full[jv % kSlots], (jv / kSlots) & 1); });
       release(jv);
     }
     // out through the warpgroup's column blocks of the Q tile, once
-    // neither warpgroup reads Q (the last exchange says so where there is
-    // one), and one TMA store a block
-    if (!kFwdDsplitExchange) named_barrier(kXFull, kConsumerThreads);
+    // neither warpgroup reads Q, and one TMA store a block
+    named_barrier(kQRead, kConsumerThreads);
     float inv[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) inv[h] = l[h] > 0.f ? 1.f / l[h] : 0.f;

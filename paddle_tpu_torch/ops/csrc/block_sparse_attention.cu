@@ -462,9 +462,9 @@ BlockList make_list(const void* idx, const void* count, const void* order,
 // kernels (WIDE, wide_attention.cuh) in either dtype, except bf16 at 192
 // and 256 (the list kernels of attention_wgmma.cuh) and the bf16 forward
 // at 320..512 (bsa_fwd_dsplit_wgmma_kernel), picked in each entry point
-// before this dispatch. The arguments are
-// the kernels' up to sq, sk; causal, scale and the stream follow (with
-// head_dim before them for WIDE). Everything else is refused with
+// before this dispatch (the forward's WIDE takes fp32 alone). The
+// arguments are the kernels' up to sq, sk; causal, scale and the stream
+// follow (with head_dim before them for WIDE). Everything else is refused with
 // cudaErrorInvalidValue before any launch.
 #define BSA_DISPATCH(FP32, BF16, WIDE, ...)                                 \
   do {                                                                      \

@@ -734,7 +734,7 @@ Dropout make_dropout(unsigned seed, unsigned threshold, float keep_div,
 // (WIDE) in either dtype, over a dense walk, except bf16 at 192 and 256
 // (the list kernels of attention_wgmma.cuh) and the bf16 forward at
 // 320..512 (bsa_fwd_dsplit_wgmma_kernel), picked in each entry point
-// before this dispatch.
+// before this dispatch (the forward's WIDE takes fp32 alone).
 // Everything else is refused with cudaErrorInvalidValue before any
 // launch.
 #define FA_DISPATCH(FP32, BF16, WIDE, WALK, ...)                           \

@@ -1,6 +1,6 @@
 // Attention kernels for padded head dims past 128 (192, 256, ..., 512),
-// written by hand for Hopper (sm_90a): forward, dQ and dK/dV, fp32 and
-// bf16, shared by the flash kernels (flash_attention.cu, which walk every
+// written by hand for Hopper (sm_90a): forward (fp32), dQ and dK/dV (fp32
+// and bf16), shared by the flash kernels (flash_attention.cu, which walk every
 // kv tile, with dropout) and the block-sparse kernels
 // (block_sparse_attention.cu, which walk their compacted lists).
 //
@@ -12,7 +12,8 @@
 // every padded head dim past 128 and the bf16 dQ and dK/dV at 320..512;
 // bf16 at 192 and 256 runs the wgmma list kernels of attention_wgmma.cuh
 // instead, and the bf16 forward at 320..512 that header's
-// bsa_fwd_dsplit_wgmma_kernel (D split across two warpgroups).
+// bsa_fwd_dsplit_wgmma_kernel (D split across two warpgroups), so no bf16
+// wide_fwd_kernel is built.
 //
 // Why a path of their own: at D = 512 a 64-row fp32 tile is 128 KB, so
 // the narrow kernels' tiles (dQ holds four) do not fit the 227 KB of
@@ -33,6 +34,8 @@
 // the scores per slice, so they are far from it (100-300x in bf16). Right
 // and simple first.
 #pragma once
+
+#include <type_traits>
 
 #include "attention_tiles.cuh"
 
@@ -226,19 +229,25 @@ inline bool wide_head_dim(int d) {
   return d > 128 && d <= 512 && d % kSlice == 0;
 }
 
+// fp32 only: every bf16 forward past 128 is picked before the dispatch
 template <typename T>
 cudaError_t launch_wide_fwd(const void* q, const void* k, const void* v,
                             void* out, void* lse, BlockList L, int bh,
                             int sq, int sk, int d, int causal, float scale,
                             Dropout drop, cudaStream_t st) {
-  auto kernel = wide_fwd_kernel<T>;
-  cudaError_t err = set_smem(kernel, kWideFwdSmem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(sq / kTile, bh, d / kSlice), kThreads, kWideFwdSmem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), L, sq, sk, d, causal, scale, drop);
-  return cudaGetLastError();
+  if constexpr (!std::is_same_v<T, float>) {
+    return cudaErrorInvalidValue;
+  } else {
+    auto kernel = wide_fwd_kernel<T>;
+    cudaError_t err = set_smem(kernel, kWideFwdSmem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(sq / kTile, bh, d / kSlice), kThreads, kWideFwdSmem,
+             st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                   static_cast<const T*>(v), static_cast<T*>(out),
+                   static_cast<float*>(lse), L, sq, sk, d, causal, scale,
+                   drop);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

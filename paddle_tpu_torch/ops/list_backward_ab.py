@@ -40,19 +40,17 @@ VARIANTS = {"as_is": SLOTS, "two_slots": SLOTS.replace(": 3;", ": 2;")}
 SOURCES = ("flash_attention", "block_sparse_attention")
 
 
-def build(out: Path, variants: dict = VARIANTS,
-          anchor: str = SLOTS) -> dict:
-    """Each variant's header (``anchor``, a line of attention_wgmma.cuh,
-    replaced by the variant's line) beside copies of both sources, all
-    built at once: (variant, source) -> library."""
+def build(out: Path) -> dict:
+    """Each variant's header beside copies of both sources, all built at
+    once: (variant, source) -> library."""
     header = (_build.CSRC / "attention_wgmma.cuh").read_text()
-    if header.count(anchor) != 1:
-        raise RuntimeError(f"{anchor!r} is not where it was")
+    if header.count(SLOTS) != 1:
+        raise RuntimeError("the ring's slot count is not where it was")
     procs = {}
-    for name, line in variants.items():
+    for name, line in VARIANTS.items():
         d = out / name
         d.mkdir()
-        (d / "attention_wgmma.cuh").write_text(header.replace(anchor, line))
+        (d / "attention_wgmma.cuh").write_text(header.replace(SLOTS, line))
         for src in SOURCES:
             shutil.copy(_build.CSRC / f"{src}.cu", d / f"{src}.cu")
             lib = d / f"lib{src}.so"

@@ -12,6 +12,7 @@ versions on the card (tests/test_torch_cuda_kernels.py).
 import contextlib
 import ctypes
 import importlib
+import os
 import re
 import types
 
@@ -56,6 +57,35 @@ def _close(got, want):
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=0)
 
 
+def _sides(inputs, mask, causal, got, want):
+    """Where each of out, dq, dk, dv (``got`` the port's, ``want`` the
+    JAX side's) misses most, each side's distance from the float64 value
+    (dense attention under the expanded mask, autograd), and the xdist
+    worker: which side moved, when a run misses."""
+    q, k, v = (torch.tensor(x, dtype=torch.float64, requires_grad=True)
+               for x in inputs[:3])
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
+    keep = (torch.from_numpy(np.asarray(mask, bool))
+            .repeat_interleave(sq // mask.shape[0], 0)
+            .repeat_interleave(sk // mask.shape[1], 1))
+    if causal:
+        keep &= torch.ones(sq, sk, dtype=torch.bool).tril(sk - sq)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / d ** 0.5
+    p = torch.softmax(s.masked_fill(~keep, float("-inf")), -1).nan_to_num()
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v)
+    (out * torch.from_numpy(inputs[3]).double()).sum().backward()
+    lines = []
+    for name, a, b, x in zip(("out", "dq", "dk", "dv"), got, want,
+                             (out.detach(), q.grad, k.grad, v.grad)):
+        b, x = np.asarray(b), x.numpy()
+        at = np.unravel_index(int(np.abs(a - b).argmax()), a.shape)
+        lines.append(f"{name} worst at {tuple(int(i) for i in at)}: port "
+                     f"off float64 by {abs(a[at] - x[at]):.3g}, jax by "
+                     f"{abs(b[at] - x[at]):.3g}")
+    return "; ".join(lines) + (
+        f"; worker {os.environ.get('PYTEST_XDIST_WORKER')}")
+
+
 M_LG = bsa.local_global_mask(2, 2, window=0, global_blocks=1)
 BLOCK_CASES = [
     # (b, s, h, d, block_mask, causal)
@@ -96,9 +126,14 @@ def test_block_sparse_matches_pallas_interpret(b, s, h, d, mask, causal):
     got, got_grads = _port(q, k, v, g, lambda *x: bsa.block_sparse_attention(
         *x, mask, causal=causal))
     assert _build.launches() == {}  # CPU tensors: the plain versions ran
-    _close(got, want)
-    for a, ref in zip(got_grads, grads):
-        _close(a, ref)
+    try:
+        _close(got, want)
+        for a, ref in zip(got_grads, grads):
+            _close(a, ref)
+    except AssertionError as miss:
+        raise AssertionError(f"{miss}\n" + _sides(
+            (q, k, v, g), mask, causal, [got, *got_grads],
+            [want, *grads])) from None
 
 
 def test_fully_masked_rows_are_zero_where_the_reference_is_nan():

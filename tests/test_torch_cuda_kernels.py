@@ -1218,10 +1218,10 @@ def test_dsplit_forward_matches_plain_sparse(card, bh, sq, sk, blk_q,
 # bsa_fwd_dsplit_wgmma_kernel broken two ways: kind -> (file, kernel, a
 # line of it, the line broken)
 DSPLIT_MUTATIONS = {
-    # warpgroup 1's scores leave Q K^T's last 64 columns of depth out
+    # the scores leave Q K^T's last 64 columns of depth out
     "s_depth": ("attention_wgmma.cuh", "bsa_fwd_dsplit_wgmma_kernel",
-                "for (int kk = 0; kk < kSteps; ++kk)",
-                "for (int kk = 0; kk < kSteps - 4 * wg; ++kk)"),
+                "fwd_tile_wgmma<D, kOwn * 64, kTile>(",
+                "fwd_tile_wgmma<D - 64, kOwn * 64, kTile>("),
     # warpgroup 1's column offset into V: both read V's first blocks
     "v_columns": ("attention_wgmma.cuh", "bsa_fwd_dsplit_wgmma_kernel",
                   "kTileBytes + v_blk * kColBytes);",
@@ -1233,8 +1233,8 @@ def test_dsplit_forward_limit_rejects_a_short_depth_or_offset(
         card, tmp_path, monkeypatch):
     """The bf16 limit tells bsa_fwd_dsplit_wgmma_kernel from a broken
     one: the flash source is rebuilt beside a copy of attention_wgmma.cuh
-    whose second warpgroup leaves the last 64 columns of Q and K out of
-    its scores, and beside one whose second warpgroup multiplies p by V's
+    whose warpgroups leave the last 64 columns of Q and K out of their
+    scores, and beside one whose second warpgroup multiplies p by V's
     first column blocks; at flash's
     wide shape (BH 16, S 1024, causal) at D 512 and D 320 each result
     must miss REL_TOL, while the right kernel meets it. Prints both
