@@ -93,21 +93,21 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    copy; fp32 out and q/k/v gradients agree with the dense masked
    composition, bf16 with the plain versions on the same route.
    ``wide`` — the six flash and block-sparse entry points at padded head
-   dims 192, 256 and 512 (bf16) and 256 (fp32), flash's at bf16 256 with
-   dropout, and the forwards at bf16 320 and flash's at bf16 512 with
-   dropout, against their plain versions: the kernel each case ran (the
-   profiler's name: at bf16 192 and 256 the list kernels of
-   ``attention_wgmma.cuh``, ``bsa_fwd_wgmma_kernel``,
+   dims 192, 256, 320 and 512 (bf16) and 256 (fp32), and flash's at bf16
+   256 and 512 with dropout, against their plain versions: the kernel
+   each case ran (the profiler's name: at bf16 192 and 256 the list
+   kernels of ``attention_wgmma.cuh``, ``bsa_fwd_wgmma_kernel``,
    ``bsa_dq_wgmma_kernel`` and ``bsa_dkv_split_wgmma_kernel``, in both
-   families; the bf16 forward at 320 and 512 that header's
-   ``bsa_fwd_dsplit_wgmma_kernel``; the wide kernels elsewhere), errors,
+   families; at bf16 320 and 512 that header's D-split kernels,
+   ``bsa_fwd_dsplit_wgmma_kernel``, ``bsa_dq_dsplit_wgmma_kernel`` and
+   ``bsa_dkv_dsplit_wgmma_kernel``; the wide kernels in fp32), errors,
    times, bounds, ptxas; ``wide_library``: torch's
    scaled_dot_product_attention on the bf16 D 256 and D 512 inputs
    (causal for flash, the expanded mask for block-sparse), forward and
    backward (dq, dk and dv in one call), each with the backend it ran,
    as the yardstick. With ``--parent DIR``, ``wide_parent`` times that
-   tree's bf16 entry points at D 192 and 256, and its forwards at D 512,
-   beside this tree's (parent, this, this, parent).
+   tree's bf16 entry points at D 192, 256 and 512 beside this tree's
+   (parent, this, this, parent).
 11. ``layer_norm`` — the LayerNorm kernel against its plain version at
    [8192, 2048] and [16, 2048], fp32 and bf16, with
    ``torch.nn.functional.layer_norm`` as the yardstick; then
@@ -1525,14 +1525,14 @@ def sparse_parent(parent, calls, mask, tensors, causal, scale, timer):
 # flash's dropout rate; block-sparse attention has no dropout and skips
 # a case with one). Flash at BH 16, S 1024, causal; block-sparse at BH 8,
 # S 2048 on BigBird's pattern at 128-token blocks. Smaller than the main
-# shapes: fp32, and the bf16 dQ and dK/dV past D 256, run on the FMA
-# units and repeat the scores for each 64-column output slice.
+# shapes: fp32 runs on the FMA units and repeats the scores for each
+# 64-column output slice.
 WIDE_CASES = ((torch.bfloat16, 192, ("fwd", "dq", "dkv"), 0.0),
               (torch.bfloat16, 256, ("fwd", "dq", "dkv"), 0.0),
               (torch.bfloat16, 256, ("fwd", "dq", "dkv"), 0.1),
-              (torch.bfloat16, 320, ("fwd",), 0.0),
+              (torch.bfloat16, 320, ("fwd", "dq", "dkv"), 0.0),
               (torch.bfloat16, 512, ("fwd", "dq", "dkv"), 0.0),
-              (torch.bfloat16, 512, ("fwd",), 0.1),
+              (torch.bfloat16, 512, ("fwd", "dq", "dkv"), 0.1),
               (torch.float32, 256, ("fwd", "dq", "dkv"), 0.0))
 WIDE_SHAPE = dict(flash_bh=16, flash_seq=1024, sparse_bh=8, sparse_seq=2048)
 
@@ -1542,16 +1542,19 @@ WIDE_SHAPE = dict(flash_bh=16, flash_seq=1024, sparse_bh=8, sparse_seq=2048)
 WIDE_LIST_KERNEL_OF = {"fwd": "bsa_fwd_wgmma_kernel",
                        "dq": "bsa_dq_wgmma_kernel",
                        "dkv": "bsa_dkv_split_wgmma_kernel"}
-# the bf16 forward of both families at padded head dims 320..512
-WIDE_DSPLIT_KERNEL = "bsa_fwd_dsplit_wgmma_kernel"
+# the D-split kernel each entry point launches in bf16 at padded head
+# dims 320..512, both families
+WIDE_DSPLIT_KERNEL_OF = {"fwd": "bsa_fwd_dsplit_wgmma_kernel",
+                         "dq": "bsa_dq_dsplit_wgmma_kernel",
+                         "dkv": "bsa_dkv_dsplit_wgmma_kernel"}
 
 
 def wide_kernel_of(kind: str, dtype, d: int) -> str:
     """The kernel an entry point launches at padded head dim d > 128."""
     if dtype == torch.bfloat16 and d <= 256:
         return WIDE_LIST_KERNEL_OF[kind]
-    if dtype == torch.bfloat16 and kind == "fwd":
-        return WIDE_DSPLIT_KERNEL
+    if dtype == torch.bfloat16:
+        return WIDE_DSPLIT_KERNEL_OF[kind]
     return f"wide_{kind}_kernel"
 
 
@@ -1565,8 +1568,8 @@ def phase_wide(device, peaks, timer, parent=None):
     backward under each backend (``wide_library``; the fastest beside dQ
     and dK/dV as ``sdpa_backward_ms``, whose ``library_ms`` is null: no
     one call computes either alone).
-    With ``parent``, that tree's bf16 entry points at D 192 and 256, and
-    its forwards at D 512, beside this tree's (``wide_parent``)."""
+    With ``parent``, that tree's bf16 entry points at D 192, 256 and 512
+    beside this tree's (``wide_parent``)."""
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import block_sparse_attention as bsa
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -1669,8 +1672,7 @@ def phase_wide(device, peaks, timer, parent=None):
             if (theirs is not None and dtype == torch.bfloat16
                     and d in (192, 256, 512) and not dropout):
                 wide_parent(theirs[fam], fam, tag, calls,
-                            (q, k, v, do, lse, delta), args, timer,
-                            ("fwd",) if d == 512 else kinds)
+                            (q, k, v, do, lse, delta), args, timer, kinds)
             del q, k, v, do, out, lse, delta
             torch.cuda.empty_cache()
     return results
@@ -2288,14 +2290,19 @@ def main() -> int:
                 f"{entry}_d256", res["kernel"],
                 "paddle_tpu_torch/ops/csrc/attention_wgmma.cuh",
                 f"{ref}:{line}", count, res, None))
-    # the D-split forward at padded D 512 (the wide phase's bf16 cases)
-    for fam, ref, line in (("flash", fa_ref, 162), ("sparse", bsa_ref, 92)):
-        res = wide[(fam, "fwd", "bfloat16_d512")]
-        (entry, count), = res["launches"].items()
-        entries.append(kernel_entry(
-            f"{entry}_d512", res["kernel"],
-            "paddle_tpu_torch/ops/csrc/attention_wgmma.cuh",
-            f"{ref}:{line}", count, res, res["library_ms"]))
+    # the D-split forward, dQ and dK/dV at padded D 512 (the wide phase's
+    # bf16 cases)
+    for fam, ref, lines in (("flash", fa_ref, (("fwd", 162), ("dq", 277),
+                                               ("dkv", 316))),
+                            ("sparse", bsa_ref, (("fwd", 92), ("dq", 182),
+                                                 ("dkv", 216)))):
+        for kind, line in lines:
+            res = wide[(fam, kind, "bfloat16_d512")]
+            (entry, count), = res["launches"].items()
+            entries.append(kernel_entry(
+                f"{entry}_d512", res["kernel"],
+                "paddle_tpu_torch/ops/csrc/attention_wgmma.cuh",
+                f"{ref}:{line}", count, res, res["library_ms"]))
     res = ln["8192x2048_bfloat16"]
     entries.append(kernel_entry(
         "layer_norm_fwd", "ln_fwd_kernel",

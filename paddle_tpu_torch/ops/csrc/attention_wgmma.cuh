@@ -1,12 +1,14 @@
 // The bf16 attention tile steps on wgmma, shared by the flash kernels
 // (flash_attention.cu) and the block-sparse kernels
 // (block_sparse_attention.cu), which differ only in the tiles they walk:
-//   fwd_tile_wgmma   online softmax over one kv tile (fa_fwd_wgmma_kernel,
-//                    bsa_fwd_wgmma_kernel, bsa_fwd_dsplit_wgmma_kernel)
-//   dq_tile_wgmma    dq += ds k over one kv tile (fa_dq_wgmma_kernel,
-//                    bsa_dq_wgmma_kernel)
-//   dkv_tile_wgmma   dv += p^T dO, dk += ds^T q over one q tile
-//                    (fa_dkv_wgmma_kernel, bsa_dkv_wgmma_kernel)
+//   fwd_tile_wgmma     online softmax over one kv tile (fa_fwd_wgmma_kernel,
+//                      bsa_fwd_wgmma_kernel, bsa_fwd_dsplit_wgmma_kernel)
+//   dq_tile_wgmma      dq += ds k over one kv tile (fa_dq_wgmma_kernel,
+//                      bsa_dq_wgmma_kernel, bsa_dq_dsplit_wgmma_kernel)
+//   dkv_tile_wgmma     dv += p^T dO, dk += ds^T q over one q tile
+//                      (fa_dkv_wgmma_kernel, bsa_dkv_wgmma_kernel)
+//   dkv_p_tile_wgmma,  the same split by role (bsa_dkv_split_wgmma_kernel,
+//   dkv_ds_tile_wgmma  bsa_dkv_dsplit_wgmma_kernel)
 // and, below, the kernels both families launch over a BlockList:
 //   bsa_fwd_wgmma_kernel        the forward: block-sparse at padded D
 //                               64..256, flash at 192 and 256
@@ -14,20 +16,23 @@
 //                               192 and 256
 //   bsa_dkv_split_wgmma_kernel  dK/dV at 192 and 256, both families: a
 //                               64-row block whose two warpgroups split
-//                               the products by role (dkv_p_tile_wgmma,
-//                               dkv_ds_tile_wgmma)
+//                               the products by role
 //   bsa_fwd_dsplit_wgmma_kernel the forward at 320..512, both families: a
 //                               64-row block whose two warpgroups split D
+//   bsa_dq_dsplit_wgmma_kernel  dQ at 320..512, both families: the same
+//                               split, over 32-row kv tiles
+//   bsa_dkv_dsplit_wgmma_kernel dK/dV at 320..512, both families: two
+//                               blocks split D, each with the two roles
 //
 // A block owns a 128-row tile (q rows in the forward and dQ, kv rows in
-// dK/dV; 64 rows in bsa_dkv_split_wgmma_kernel and
-// bsa_fwd_dsplit_wgmma_kernel) and is two consumer warpgroups of 64 of
-// its rows each (of all 64, split by role or by D, in those two); the other
-// side's 64-row tiles stream through a ring of shared-memory stages,
-// loaded by TMA (hopper_tiles.cuh's layout contract: 128-byte swizzle,
-// column blocks of 64). Every product is wgmma: operands in shared
-// memory, or p / ds re-packed from accumulators as register A fragments
-// (rounded to bf16, as the reference casts them).
+// dK/dV; 64 rows in the split and D-split kernels) and is two consumer
+// warpgroups of 64 of its rows each (of all 64, split by role or by D, in
+// those); the other side's tiles (64 rows; 32 in the D-split dQ, and in
+// the D-split dK/dV past D 320) stream through a ring of shared-memory
+// stages, loaded by TMA (hopper_tiles.cuh's layout contract: 128-byte swizzle, column
+// blocks of 64). Every product is wgmma: operands in shared memory, or p
+// / ds re-packed from accumulators as register A fragments (rounded to
+// bf16, as the reference casts them).
 #pragma once
 
 #include "attention_tiles.cuh"
@@ -176,40 +181,43 @@ __device__ __forceinline__ void fwd_tile_wgmma(
   wg_fence_regs(o);
 }
 
-// One kv tile (K at k_base, V at v_base, 64 rows each) against the
+// One kv tile (K at k_base, V at v_base, R rows each) against the
 // warpgroup's 64 q rows rows[h] (Q, dO at q_base, do_base in the block's
-// 128-row tiles; lse_l2 = lse log2(e) and delta of the rows): S = Q K^T
-// and dP = dO V^T, committed apart so that p is computed while dP runs,
-// then dq += ds K, as attention_tiles.cuh's dq_tile. wait_v() runs once S
-// is issued and before dP: a caller whose V tile comes in after its K
-// waits for it there.
-template <int D, typename WaitV = NoWait>
+// tiles of QRows rows; lse_l2 = lse log2(e) and delta of the rows): S =
+// Q K^T and dP = dO V^T, committed apart so that p is computed while dP
+// runs, then dq += ds K, as attention_tiles.cuh's dq_tile. dq holds N
+// columns of the output, K's from column block own0: all D, or a
+// warpgroup's share where two split D. wait_v() runs once S is issued and
+// before dP: a caller whose V tile comes in after its K waits for it
+// there.
+template <int D, int N = D, int R = kTile, int QRows = kWgBlock,
+          typename WaitV = NoWait>
 __device__ __forceinline__ void dq_tile_wgmma(
-    float (&dq)[D / 8][4], uint32_t q_base, uint32_t do_base,
+    float (&dq)[N / 8][4], uint32_t q_base, uint32_t do_base,
     uint32_t k_base, uint32_t v_base, const int (&rows)[2],
     const float (&lse_l2)[2], const float (&dl)[2], int c0, bool mask,
     int offset, float scale, const Dropout& drop, uint32_t key,
-    const WaitV& wait_v = WaitV{}) {
+    const WaitV& wait_v = WaitV{}, int own0 = 0) {
   const int tig = threadIdx.x % 4;
   const float scale_log2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
-  float s[kTile / 8][4] = {}, dp[kTile / 8][4] = {};
+  float s[R / 8][4] = {}, dp[R / 8][4] = {};
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<kTile>(s, kmajor_desc(q_base, kk, kWgBlock),
-                    kmajor_desc(k_base, kk, kTile), kk > 0);
+    wgmma_ss<R>(s, kmajor_desc(q_base, kk, QRows),
+                kmajor_desc(k_base, kk, R), kk > 0);
   wg_commit();
   wait_v();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<kTile>(dp, kmajor_desc(do_base, kk, kWgBlock),
-                    kmajor_desc(v_base, kk, kTile), kk > 0);
+    wgmma_ss<R>(dp, kmajor_desc(do_base, kk, QRows),
+                kmajor_desc(v_base, kk, R), kk > 0);
   wg_commit();
   // p while dP is still in the tensor cores
   wg_wait<1>();
   wg_fence_regs(s);
 #pragma unroll
-  for (int j = 0; j < kTile / 8; ++j)
+  for (int j = 0; j < R / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int h = e >> 1, col = c0 + j * 8 + 2 * tig + (e & 1);
@@ -220,7 +228,7 @@ __device__ __forceinline__ void dq_tile_wgmma(
   wg_wait<0>();
   wg_fence_regs(dp);
 #pragma unroll
-  for (int j = 0; j < kTile / 8; ++j)
+  for (int j = 0; j < R / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int h = e >> 1, col = c0 + j * 8 + 2 * tig + (e & 1);
@@ -231,12 +239,13 @@ __device__ __forceinline__ void dq_tile_wgmma(
       }
       s[j][e] = s[j][e] * (dpv - dl[h]) * scale;  // ds
     }
-  uint32_t da[kTile / 16][4];
-  to_a_frags<kTile / 8>(da, s);  // rounded to bf16, as the reference
+  uint32_t da[R / 16][4];
+  to_a_frags<R / 8>(da, s);  // rounded to bf16, as the reference
+  const uint32_t k_own = k_base + own0 * R * 128;
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk)
-    wgmma_rs_t<D>(dq, da[kk], mnmajor_desc(k_base, kk, kTile));
+  for (int kk = 0; kk < R / 16; ++kk)
+    wgmma_rs_t<N>(dq, da[kk], mnmajor_desc(k_own, kk, R));
   wg_commit();
   wg_wait<0>();
   wg_fence_regs(dq);
@@ -1105,29 +1114,32 @@ static_assert(dq_list_wgmma_smem<256>() <= 232448 &&
                   dkv_split_wgmma_smem<256>() <= 232448,
               "a block asks for more than 227 KB of shared memory");
 
-// Role P on one 64-row q tile (Q, dO at q_base, do_base, its lse at
+// Role P on one q tile of R rows (Q, dO at q_base, do_base, its lse at
 // lse_t) against the block's 64 kv rows cols[h] (K at k_base): p into
 // p_s (p_busy: dS may still be reading the previous tile's), then
-// dv += p_drop^T dO.
-template <int D>
+// dv += p_drop^T dO. dv holds N columns, dO's from column block own0: all
+// D, or a block's share where blocks split D. before_dv() runs before the
+// product: a caller whose dO comes in after its Q waits for it there.
+template <int D, int N = D, int R = kTile, typename BeforeDV = NoWait>
 __device__ __forceinline__ void dkv_p_tile_wgmma(
-    float (&dv)[D / 8][4], uint32_t k_base, uint32_t q_base,
+    float (&dv)[N / 8][4], uint32_t k_base, uint32_t q_base,
     uint32_t do_base, const float* lse_t, float4* p_s, const int (&cols)[2],
     int r0, bool mask, int offset, float scale, const Dropout& drop,
-    uint32_t key, bool p_busy) {
+    uint32_t key, bool p_busy, int own0 = 0,
+    const BeforeDV& before_dv = BeforeDV{}) {
   const int tig = threadIdx.x % 4, tid = threadIdx.x % 128;
   const float scale_log2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
-  float st[kTile / 8][4] = {};
+  float st[R / 8][4] = {};
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<kTile>(st, kmajor_desc(k_base, kk, kTile),
-                    kmajor_desc(q_base, kk, kTile), kk > 0);
+    wgmma_ss<R>(st, kmajor_desc(k_base, kk, kTile),
+                kmajor_desc(q_base, kk, R), kk > 0);
   wg_commit();
   wg_wait<0>();
   wg_fence_regs(st);
 #pragma unroll
-  for (int j = 0; j < kTile / 8; ++j)
+  for (int j = 0; j < R / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int rl = j * 8 + 2 * tig + (e & 1);
@@ -1138,12 +1150,12 @@ __device__ __forceinline__ void dkv_p_tile_wgmma(
     }
   if (p_busy) named_barrier(kPEmpty, kConsumerThreads);
 #pragma unroll
-  for (int j = 0; j < kTile / 8; ++j)
+  for (int j = 0; j < R / 8; ++j)
     p_s[j * 128 + tid] = make_float4(st[j][0], st[j][1], st[j][2], st[j][3]);
   named_barrier_arrive(kPFull, kConsumerThreads);
   if (drop.on)
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < R / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = r0 + j * 8 + 2 * tig + (e & 1);
@@ -1151,12 +1163,14 @@ __device__ __forceinline__ void dkv_p_tile_wgmma(
             dropout_bits(key, row, cols[e >> 1]) >= drop.threshold;
         st[j][e] = keep ? st[j][e] * drop.keep_inv : 0.f;
       }
-  uint32_t pa[kTile / 16][4];
-  to_a_frags<kTile / 8>(pa, st);  // rounded to bf16, as the reference
+  uint32_t pa[R / 16][4];
+  to_a_frags<R / 8>(pa, st);  // rounded to bf16, as the reference
+  const uint32_t do_own = do_base + own0 * R * 128;
+  before_dv();
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk)
-    wgmma_rs_t<D>(dv, pa[kk], mnmajor_desc(do_base, kk, kTile));
+  for (int kk = 0; kk < R / 16; ++kk)
+    wgmma_rs_t<N>(dv, pa[kk], mnmajor_desc(do_own, kk, R));
   wg_commit();
   wg_wait<0>();
   wg_fence_regs(dv);
@@ -1164,30 +1178,32 @@ __device__ __forceinline__ void dkv_p_tile_wgmma(
 
 // Role dS on the same tile (V at v_base, the q rows' delta at dl_t): dP^T,
 // then p from p_s (p_next: tell P it may write the next tile's), and
-// dk += ds^T Q.
-template <int D>
+// dk += ds^T Q over N columns of Q from column block own0; before_dk()
+// runs before that product (a caller whose Q comes in apart waits there).
+template <int D, int N = D, int R = kTile, typename BeforeDK = NoWait>
 __device__ __forceinline__ void dkv_ds_tile_wgmma(
-    float (&dk)[D / 8][4], uint32_t v_base, uint32_t q_base,
+    float (&dk)[N / 8][4], uint32_t v_base, uint32_t q_base,
     uint32_t do_base, const float* dl_t, const float4* p_s,
     const int (&cols)[2], int r0, float scale, const Dropout& drop,
-    uint32_t key, bool p_next) {
+    uint32_t key, bool p_next, int own0 = 0,
+    const BeforeDK& before_dk = BeforeDK{}) {
   const int tig = threadIdx.x % 4, tid = threadIdx.x % 128;
-  float dpt[kTile / 8][4] = {};
+  float dpt[R / 8][4] = {};
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<kTile>(dpt, kmajor_desc(v_base, kk, kTile),
-                    kmajor_desc(do_base, kk, kTile), kk > 0);
+    wgmma_ss<R>(dpt, kmajor_desc(v_base, kk, kTile),
+                kmajor_desc(do_base, kk, R), kk > 0);
   wg_commit();
   wg_wait<0>();
   wg_fence_regs(dpt);
   named_barrier(kPFull, kConsumerThreads);
-  float4 p[kTile / 8];
+  float4 p[R / 8];
 #pragma unroll
-  for (int j = 0; j < kTile / 8; ++j) p[j] = p_s[j * 128 + tid];
+  for (int j = 0; j < R / 8; ++j) p[j] = p_s[j * 128 + tid];
   if (p_next) named_barrier_arrive(kPEmpty, kConsumerThreads);
 #pragma unroll
-  for (int j = 0; j < kTile / 8; ++j)
+  for (int j = 0; j < R / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int rl = j * 8 + 2 * tig + (e & 1);
@@ -1201,12 +1217,14 @@ __device__ __forceinline__ void dkv_ds_tile_wgmma(
                                                 : e == 2 ? p[j].z : p[j].w;
       dpt[j][e] = pv * (dpv - dl_t[rl]) * scale;  // ds^T
     }
-  uint32_t da[kTile / 16][4];
-  to_a_frags<kTile / 8>(da, dpt);  // rounded to bf16, as the reference
+  uint32_t da[R / 16][4];
+  to_a_frags<R / 8>(da, dpt);  // rounded to bf16, as the reference
+  const uint32_t q_own = q_base + own0 * R * 128;
+  before_dk();
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk)
-    wgmma_rs_t<D>(dk, da[kk], mnmajor_desc(q_base, kk, kTile));
+  for (int kk = 0; kk < R / 16; ++kk)
+    wgmma_rs_t<N>(dk, da[kk], mnmajor_desc(q_own, kk, R));
   wg_commit();
   wg_wait<0>();
   wg_fence_regs(dk);
@@ -1381,6 +1399,547 @@ cudaError_t launch_bsa_dkv_split_wgmma(const void* q, const void* k,
       tq, tk, tv, tdo, tdk, tdv, static_cast<const float*>(lse),
       static_cast<const float*>(delta), L, sq, sk, causal, scale, drop);
   return cudaGetLastError();
+}
+
+// --------------------- the backward past D 256: D split, over a BlockList
+//
+// bsa_dq_dsplit_wgmma_kernel replaces _bsa_dq_kernel
+// (paddle_tpu/ops/pallas/block_sparse_attention.py:182, pallas_call :271)
+// and _fa_dq_kernel (paddle_tpu/ops/pallas/flash_attention.py:277,
+// pallas_call :380), and bsa_dkv_dsplit_wgmma_kernel replaces
+// _bsa_dkv_kernel (block_sparse_attention.py:216, pallas_call :310) and
+// _fa_dkv_kernel (flash_attention.py:316, pallas_call :397), in bf16 at
+// padded D 320, 384, 448 and 512: what bsa_dq_wgmma_kernel and
+// bsa_dkv_split_wgmma_kernel compute at D <= 256 (p recomputed from lse,
+// ds = p (dp_drop - delta) scale, the causal offset sk - sq, flash's
+// dropout keep bits, p and ds rounded to bf16 before their products,
+// exact zeros where a row or column sees nothing).
+//
+// Why not those kernels: at D 512 a 64-row bf16 tile is 64 KB, and a
+// full-D fp32 accumulator 256 registers a thread. The D 256 dQ keeps two
+// 128-row tiles (Q, dO) beside its K/V ring, 256 KB here; the D 256
+// dK/dV gives each role a full-D accumulator (dK and dV of 64 kv rows are
+// the whole register file of an SM at D 512). So both split D, as
+// bsa_fwd_dsplit_wgmma_kernel does, into the output's 64-column blocks:
+// ceil(D / 128) of them to the first part, the rest to the second (3 + 2,
+// 3 + 3, 4 + 3, 4 + 4 at D 320 / 384 / 448 / 512), each on whole 128-byte
+// swizzle atoms, which an MN-major operand needs. Each part recomputes
+// the scores over the full D: the same wgmma steps on the same tiles give
+// both the same bits.
+//
+// dQ: a block owns 64 q rows (Q and dO loaded once by TMA, 40..64 KB
+// each); its two warpgroups split dQ's column blocks. Per kv tile each
+// computes S = Q K^T and dP = dO V^T itself, then dq[:, own] += ds
+// K[:, own] (dq_tile_wgmma at width 64 kOwn). kv tiles are 32 rows: S and
+// dP then take 16 registers each beside an accumulator of up to 128, and
+// K and V come through a ring of 32-row items of their own (K of tile t
+// item 2t, V item 2t + 1), as many slots as 227 KB hold beside Q and dO
+// (7 at D 320, 5 at 384, 4 at 448, 3 at 512), refilled by thread 0 one
+// tile after their release, as bsa_dq_wgmma_kernel does. Work: S and dP
+// twice, 5 products of a tile against the 3 of one pass.
+//
+// dK/dV: a block owns 64 kv rows and one part of dK's and dV's column
+// blocks (a grid axis: blockIdx.x = 2 bh + part, both parts of a kv tile
+// side by side). Its two warpgroups keep bsa_dkv_split_wgmma_kernel's
+// roles (P: S^T and p, handed to dS as fp32 through shared memory, then
+// dv[:, own] += p_drop^T dO[:, own]; dS: dP^T, ds^T, dk[:, own] += ds^T
+// Q[:, own]), each with one accumulator of kOwn column blocks. K and V
+// stay resident (80..128 KB); the q tiles come through a ring as items of
+// their own (Q of walk step i item 2i, with its lse and delta; dO item
+// 2i + 1): 64-row q tiles at D 320 (3 slots), 32-row past it (5, 3, 2
+// slots at D 384, 448, 512; 64-row tiles would leave 2, 1, 1). Work: S^T
+// and dP^T once a part, 3 products of a tile against the 2 of one pass.
+// Thread 0 of role dS refills a slot once both roles have released it.
+//
+// Both walk the lists as the D 256 kernels do: under causal the tiles on
+// the far side of the block's diagonal are cut before anything is loaded
+// (a suffix of dQ's ascending walk, a prefix of dK/dV's); blocks launch
+// heaviest first (block-sparse by L.order; flash's dense walk its last q
+// block first for dQ, kv tile 0 first for dK/dV). No atomics: the result
+// is deterministic. The walk and the dropout are template arguments, as in
+// the D 256 kernels.
+//
+// Bound on the H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): 6 D FLOP a
+// (q, k) pair for dQ and 8 D for dK/dV over the active pairs; at flash
+// BH 16, S 1024, D 512, causal: 26.0 GFLOP (0.026 ms) for dQ and 34.6
+// (0.035 ms) for dK/dV, both bound by operations.
+
+// kv rows of dQ's tiles
+template <int D>
+__host__ __device__ constexpr int dq_dsplit_rows() {
+  return 32;
+}
+template <int D>
+__host__ __device__ constexpr size_t dq_dsplit_smem_at(int slots) {
+  return 1024 + 2 * tile_bytes<D>(kTile) +
+         slots * tile_bytes<D>(dq_dsplit_rows<D>()) + (1 + 2 * slots) * 8;
+}
+template <int D>
+__host__ __device__ constexpr int dq_dsplit_slots() {
+  int n = 2;
+  while (n < 8 && dq_dsplit_smem_at<D>(n + 1) <= 232448) ++n;
+  return n;
+}
+template <int D>
+constexpr size_t dq_dsplit_smem() {
+  return dq_dsplit_smem_at<D>(dq_dsplit_slots<D>());
+}
+
+template <int D>
+__host__ __device__ constexpr size_t dkv_dsplit_smem_at(int rows,
+                                                        int slots) {
+  return 1024 + 2 * tile_bytes<D>(kTile) +
+         slots * (tile_bytes<D>(rows) + rows * 4) + kTile * rows * 4 +
+         (1 + 2 * slots) * 8;
+}
+template <int D>
+__host__ __device__ constexpr int dkv_dsplit_slots_at(int rows) {
+  int n = 0;
+  while (n < 8 && dkv_dsplit_smem_at<D>(rows, n + 1) <= 232448) ++n;
+  return n;
+}
+// q rows of dK/dV's tiles: 64 where that leaves 3 ring slots, else 32
+template <int D>
+__host__ __device__ constexpr int dkv_dsplit_rows() {
+  return dkv_dsplit_slots_at<D>(kTile) >= 3 ? kTile : 32;
+}
+template <int D>
+__host__ __device__ constexpr int dkv_dsplit_slots() {
+  return dkv_dsplit_slots_at<D>(dkv_dsplit_rows<D>());
+}
+template <int D>
+constexpr size_t dkv_dsplit_smem() {
+  return dkv_dsplit_smem_at<D>(dkv_dsplit_rows<D>(), dkv_dsplit_slots<D>());
+}
+static_assert(dq_dsplit_slots<512>() >= 3 && dkv_dsplit_slots<512>() >= 2 &&
+                  dq_dsplit_smem<320>() <= 232448 &&
+                  dq_dsplit_smem<512>() <= 232448 &&
+                  dkv_dsplit_smem<320>() <= 232448 &&
+                  dkv_dsplit_smem<384>() <= 232448 &&
+                  dkv_dsplit_smem<448>() <= 232448 &&
+                  dkv_dsplit_smem<512>() <= 232448,
+              "a block asks for more than 227 KB of shared memory");
+
+template <int D, bool kDense, bool kDropout>
+__global__ void __launch_bounds__(kConsumerThreads, 1)
+bsa_dq_dsplit_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const __grid_constant__ CUtensorMap tm_dq,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta, BlockList L,
+                           int sq, int sk, int causal, float scale,
+                           Dropout drop) {
+  constexpr int R = dq_dsplit_rows<D>();
+  constexpr int kBlocks = D / 64;           // column blocks of a tile
+  constexpr int kOwn0 = (kBlocks + 1) / 2;  // warpgroup 0's; 1 owns the rest
+  constexpr int kSlots = dq_dsplit_slots<D>();
+  constexpr int kQBytes = tile_bytes<D>(kTile);
+  constexpr int kItemBytes = tile_bytes<D>(R);
+  constexpr int kQRead = 1;  // named barrier: neither warpgroup reads Q
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* qs = align_1024(wg_smem);
+  unsigned char* dos = qs + kQBytes;
+  unsigned char* kvs = dos + kQBytes;  // [kSlots] K or V tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kvs + kSlots * kItemBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kSlots;
+
+  // flash's dense walk: the last q rows (the longest walk) first
+  const int bh = blockIdx.x;
+  int blk = 0, q0;
+  if (kDense) {
+    q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  } else {
+    const int per = L.blk_own / kTile;
+    blk = L.order[blockIdx.y / per];
+    q0 = blk * L.blk_own + (blockIdx.y % per) * kTile;
+  }
+  const int* list = kDense ? nullptr : L.idx + blk * L.width;
+  const int offset = sk - sq;
+  const int n = kDense ? 1 : L.count[blk], per_entry = L.blk_other / R;
+  const auto entry_row = [&](int a) {
+    return kDense ? 0 : list[a] * L.blk_other;
+  };
+  // kv tiles wholly past the block's diagonal (its last row's last
+  // column) are never loaded: a suffix of the ascending walk
+  int n_t = n * per_entry;
+  if (causal) {
+    const int last_col = q0 + kTile - 1 + offset;
+    n_t = 0;
+    for (int a = 0; a < n && entry_row(a) <= last_col; ++a)
+      n_t += min(per_entry, (last_col - entry_row(a)) / R + 1);
+  }
+  const int n_items = 2 * n_t;
+  const auto col_of = [&](int t) {
+    return entry_row(t / per_entry) + (t % per_entry) * R;
+  };
+  // ring item j into its slot: K (j even) or V (j odd) of kv tile j / 2
+  const auto load = [&](int j) {
+    const int s = j % kSlots, c0 = col_of(j / 2);
+    mbar_expect_tx(&full[s], kItemBytes);
+#pragma unroll
+    for (int cb = 0; cb < kBlocks; ++cb)
+      tma_load_3d(kvs + s * kItemBytes + cb * R * 128,
+                  j % 2 ? &tm_v : &tm_k, &full[s], cb * 64, c0, bh);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    mbar_fence_init();
+    mbar_expect_tx(q_full, 2 * kQBytes);
+#pragma unroll
+    for (int cb = 0; cb < kBlocks; ++cb) {
+      tma_load_3d(qs + cb * kTile * 128, &tm_q, q_full, cb * 64, q0, bh);
+      tma_load_3d(dos + cb * kTile * 128, &tm_do, q_full, cb * 64, q0, bh);
+    }
+    for (int j = 0; j < min(n_items, kSlots); ++j) load(j);
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, g = (tid % 32) / 4;
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  if (!kDropout) drop.on = 0;  // compiled without the dropout code
+  const uint32_t key = dropout_key(drop, bh);
+  float lse_l2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lse_l2[h] = lse[(size_t)bh * sq + rows[h]] * kLog2e;
+    dl[h] = delta[(size_t)bh * sq + rows[h]];
+  }
+  // also with nothing to walk: the epilogue reuses the Q tile
+  mbar_wait(q_full, 0);
+  // one warpgroup's walk over kOwn column blocks of dQ
+  const auto consume = [&](auto own) {
+    constexpr int kOwn = decltype(own)::value;
+    const int own0 = wg == 0 ? 0 : kOwn0;  // the first block it owns
+    float acc[kOwn * 8][4] = {};
+    for (int t = 0; t < n_t; ++t) {
+      const int j = 2 * t, s = j % kSlots, sv = (j + 1) % kSlots;
+      // thread 0 refills the slots of the tile before, once both
+      // warpgroups have released them
+      if (threadIdx.x == 0 && t > 0)
+        for (int i = j - 2; i < j; ++i)
+          if (i + kSlots < n_items) {
+            mbar_wait(&empty[i % kSlots], (i / kSlots) & 1);
+            load(i + kSlots);
+          }
+      const int c0 = col_of(t);
+      mbar_wait(&full[s], (j / kSlots) & 1);
+      dq_tile_wgmma<D, kOwn * 64, R, kTile>(
+          acc, smem_u32(qs), smem_u32(dos), smem_u32(kvs + s * kItemBytes),
+          smem_u32(kvs + sv * kItemBytes), rows, lse_l2, dl, c0,
+          causal && c0 + R - 1 > q0 + offset, offset, scale, drop, key,
+          [&] { mbar_wait(&full[sv], ((j + 1) / kSlots) & 1); }, own0);
+      mbar_arrive(&empty[s]);
+      mbar_arrive(&empty[sv]);
+    }
+    // dQ through the warpgroup's column blocks of the Q tile, once
+    // neither warpgroup reads Q, and one TMA store a block (zeros for
+    // rows that saw no column)
+    named_barrier(kQRead, kConsumerThreads);
+    const float one[2] = {1.f, 1.f};
+    stage_acc_bf16<kOwn * 64>(qs + own0 * kTile * 128, kTile, 0, acc, one);
+    fence_async_shared();
+    named_barrier(3 + wg, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int cb = 0; cb < kOwn; ++cb)
+        tma_store_3d(&tm_dq, qs + (own0 + cb) * kTile * 128,
+                     (own0 + cb) * 64, q0, bh);
+      tma_store_drain();
+    }
+  };
+  if (wg == 0)
+    consume(IntC<kOwn0>{});
+  else
+    consume(IntC<kBlocks - kOwn0>{});
+}
+
+template <int D, bool kDense>
+cudaError_t launch_dq_dsplit_wgmma_at(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dq, BlockList L, int bh, int sq,
+                                      int sk, int causal, float scale,
+                                      Dropout drop, cudaStream_t st) {
+  constexpr int R = dq_dsplit_rows<D>();
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  cudaError_t err = bf16_map(&tq, q, bh, sq, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tk, k, bh, sk, D, R);
+  if (err == cudaSuccess) err = bf16_map(&tv, v, bh, sk, D, R);
+  if (err == cudaSuccess) err = bf16_map(&tdo, dout, bh, sq, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tdq, dq, bh, sq, D, kTile);
+  if (err != cudaSuccess) return err;
+  auto kernel = kDense && drop.on
+                    ? bsa_dq_dsplit_wgmma_kernel<D, kDense, kDense>
+                    : bsa_dq_dsplit_wgmma_kernel<D, kDense, false>;
+  err = set_smem(kernel, dq_dsplit_smem<D>());
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(bh, sq / kTile), kConsumerThreads, dq_dsplit_smem<D>(),
+           st>>>(tq, tk, tv, tdo, tdq, static_cast<const float*>(lse),
+                 static_cast<const float*>(delta), L, sq, sk, causal, scale,
+                 drop);
+  return cudaGetLastError();
+}
+
+// The bf16 dQ at padded head dim d 320, 384, 448 or 512 over a
+// block-sparse q-major list (block sizes 128-multiples that tile both
+// sequences, L.order set; no dropout) or, kDense, dense_list(sk) (lengths
+// 64-multiples); any other d is refused.
+template <bool kDense>
+cudaError_t launch_dq_dsplit_wgmma(int d, const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const void* lse, const void* delta,
+                                   void* dq, BlockList L, int bh, int sq,
+                                   int sk, int causal, float scale,
+                                   Dropout drop, cudaStream_t st) {
+  switch (d) {
+    case 320:
+      return launch_dq_dsplit_wgmma_at<320, kDense>(
+          q, k, v, dout, lse, delta, dq, L, bh, sq, sk, causal, scale, drop,
+          st);
+    case 384:
+      return launch_dq_dsplit_wgmma_at<384, kDense>(
+          q, k, v, dout, lse, delta, dq, L, bh, sq, sk, causal, scale, drop,
+          st);
+    case 448:
+      return launch_dq_dsplit_wgmma_at<448, kDense>(
+          q, k, v, dout, lse, delta, dq, L, bh, sq, sk, causal, scale, drop,
+          st);
+    case 512:
+      return launch_dq_dsplit_wgmma_at<512, kDense>(
+          q, k, v, dout, lse, delta, dq, L, bh, sq, sk, causal, scale, drop,
+          st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int D, bool kDense, bool kDropout>
+__global__ void __launch_bounds__(kConsumerThreads, 1)
+bsa_dkv_dsplit_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const __grid_constant__ CUtensorMap tm_dk,
+                            const __grid_constant__ CUtensorMap tm_dv,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta, BlockList L,
+                            int sq, int sk, int causal, float scale,
+                            Dropout drop) {
+  constexpr int R = dkv_dsplit_rows<D>();
+  constexpr int kBlocks = D / 64;           // column blocks of a tile
+  constexpr int kOwn0 = (kBlocks + 1) / 2;  // part 0's; part 1 the rest
+  constexpr int kSlots = dkv_dsplit_slots<D>();
+  constexpr int kKvBytes = tile_bytes<D>(kTile);
+  constexpr int kItemBytes = tile_bytes<D>(R);
+  constexpr int kRowBytes = R * 4;
+  constexpr int kLoader = 128;  // thread 0 of role dS
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* ks = align_1024(wg_smem);
+  unsigned char* vs = ks + kKvBytes;
+  unsigned char* items = vs + kKvBytes;  // [kSlots] Q or dO tiles
+  // [kSlots][R]: the lse of a Q item's rows, the delta of a dO item's
+  float* rows_s = reinterpret_cast<float*>(items + kSlots * kItemBytes);
+  float4* p_s = reinterpret_cast<float4*>(rows_s + kSlots * R);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(p_s + R / 8 * 128);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kSlots;
+
+  const int bh = blockIdx.x / 2, part = blockIdx.x % 2;
+  const int per = L.blk_own / kTile;
+  const int blk = kDense ? blockIdx.y : L.order[blockIdx.y / per];
+  const int c0 = blk * L.blk_own + (blockIdx.y % per) * kTile;
+  const int* list = kDense ? nullptr : L.idx + blk * L.width;
+  const int offset = sk - sq;
+  const int n = kDense ? 1 : L.count[blk], per_entry = L.blk_other / R;
+  const auto entry_row = [&](int b) {
+    return kDense ? 0 : list[b] * L.blk_other;
+  };
+  // q tiles wholly above the block's diagonal (r0 + R - 1 + offset < c0)
+  // see none of it and are never loaded: a prefix of the ascending walk
+  int first = 0;
+  if (causal)
+    for (int b = 0; b < n; ++b) {
+      const int skip = min(per_entry, max(c0 - offset - entry_row(b), 0) / R);
+      first += skip;
+      if (skip < per_entry) break;
+    }
+  const int n_t = n * per_entry - first, n_items = 2 * n_t;
+  const auto row_of = [&](int i) {
+    const int t = first + i;
+    return entry_row(t / per_entry) + (t % per_entry) * R;
+  };
+  // ring item j into its slot: Q with its rows' lse (j even) or dO with
+  // their delta (j odd) of walk step j / 2
+  const auto load = [&](int j) {
+    const int s = j % kSlots, r0 = row_of(j / 2);
+    const bool is_q = j % 2 == 0;
+    mbar_expect_tx(&full[s], kItemBytes + kRowBytes);
+#pragma unroll
+    for (int cb = 0; cb < kBlocks; ++cb)
+      tma_load_3d(items + s * kItemBytes + cb * R * 128,
+                  is_q ? &tm_q : &tm_do, &full[s], cb * 64, r0, bh);
+    bulk_load(rows_s + s * R, (is_q ? lse : delta) + (size_t)bh * sq + r0,
+              kRowBytes, &full[s]);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == kLoader) {
+    mbar_expect_tx(kv_full, 2 * kKvBytes);
+#pragma unroll
+    for (int cb = 0; cb < kBlocks; ++cb) {
+      tma_load_3d(ks + cb * kTile * 128, &tm_k, kv_full, cb * 64, c0, bh);
+      tma_load_3d(vs + cb * kTile * 128, &tm_v, kv_full, cb * 64, c0, bh);
+    }
+    for (int j = 0; j < min(n_items, kSlots); ++j) load(j);
+  }
+
+  const int role = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int g = (threadIdx.x % 32) / 4;
+  const int cols[2] = {c0 + warp * 16 + g, c0 + warp * 16 + g + 8};
+  if (!kDropout) drop.on = 0;  // compiled without the dropout code
+  const uint32_t key = dropout_key(drop, bh);
+  mbar_wait(kv_full, 0);  // also with nothing to walk: the stores reuse K, V
+  // the walk, each item waited for (P: Q first, dO before dV; dS: dO
+  // first, Q before dK) and released by both roles; the loader refills a
+  // slot once both have released it
+  const auto walk = [&](const auto& step) {
+    for (int i = 0; i < n_t; ++i) {
+      const int jq = 2 * i, jo = jq + 1;
+      const int first_j = role == 0 ? jq : jo, then_j = jq + jo - first_j;
+      mbar_wait(&full[first_j % kSlots], (first_j / kSlots) & 1);
+      step(i, items + (jq % kSlots) * kItemBytes,
+           items + (jo % kSlots) * kItemBytes, rows_s + (jq % kSlots) * R,
+           rows_s + (jo % kSlots) * R, row_of(i), [&] {
+             mbar_wait(&full[then_j % kSlots], (then_j / kSlots) & 1);
+           });
+      for (int j = jq; j <= jo; ++j) {
+        mbar_arrive(&empty[j % kSlots]);
+        if (threadIdx.x == kLoader && j + kSlots < n_items) {
+          mbar_wait(&empty[j % kSlots], (j / kSlots) & 1);
+          load(j + kSlots);
+        }
+      }
+    }
+  };
+  // one part's walk over kOwn column blocks of dK and dV
+  const auto consume = [&](auto own) {
+    constexpr int kOwn = decltype(own)::value;
+    const int own0 = part == 0 ? 0 : kOwn0;  // the first block it owns
+    float acc[kOwn * 8][4] = {};  // dV in role P, dK in role dS
+    if (role == 0)
+      walk([&](int i, unsigned char* q_t, unsigned char* do_t,
+               const float* lse_t, const float*, int r0, const auto& then) {
+        dkv_p_tile_wgmma<D, kOwn * 64, R>(
+            acc, smem_u32(ks), smem_u32(q_t), smem_u32(do_t), lse_t, p_s,
+            cols, r0, causal && r0 + offset < c0 + kTile - 1, offset, scale,
+            drop, key, i > 0, own0, then);
+      });
+    else
+      walk([&](int i, unsigned char* q_t, unsigned char* do_t, const float*,
+               const float* dl_t, int r0, const auto& then) {
+        dkv_ds_tile_wgmma<D, kOwn * 64, R>(
+            acc, smem_u32(vs), smem_u32(q_t), smem_u32(do_t), dl_t, p_s, cols,
+            r0, scale, drop, key, i + 1 < n_t, own0, then);
+      });
+    // dV and dK through the part's column blocks of the V and K tiles,
+    // which neither role reads any more, and TMA stores (exact zeros for
+    // an empty walk)
+    __syncthreads();
+    const float one[2] = {1.f, 1.f};
+    stage_acc_bf16<kOwn * 64>((role == 0 ? vs : ks) + own0 * kTile * 128,
+                              kTile, 0, acc, one);
+    fence_async_shared();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int cb = own0; cb < own0 + kOwn; ++cb) {
+        tma_store_3d(&tm_dk, ks + cb * kTile * 128, cb * 64, c0, bh);
+        tma_store_3d(&tm_dv, vs + cb * kTile * 128, cb * 64, c0, bh);
+      }
+      tma_store_drain();
+    }
+  };
+  if (part == 0)
+    consume(IntC<kOwn0>{});
+  else
+    consume(IntC<kBlocks - kOwn0>{});
+}
+
+template <int D, bool kDense>
+cudaError_t launch_dkv_dsplit_wgmma_at(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* delta,
+                                       void* dk, void* dv, BlockList L,
+                                       int bh, int sq, int sk, int causal,
+                                       float scale, Dropout drop,
+                                       cudaStream_t st) {
+  constexpr int R = dkv_dsplit_rows<D>();
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv;
+  cudaError_t err = bf16_map(&tq, q, bh, sq, D, R);
+  if (err == cudaSuccess) err = bf16_map(&tk, k, bh, sk, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tv, v, bh, sk, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tdo, dout, bh, sq, D, R);
+  if (err == cudaSuccess) err = bf16_map(&tdk, dk, bh, sk, D, kTile);
+  if (err == cudaSuccess) err = bf16_map(&tdv, dv, bh, sk, D, kTile);
+  if (err != cudaSuccess) return err;
+  auto kernel = kDense && drop.on
+                    ? bsa_dkv_dsplit_wgmma_kernel<D, kDense, kDense>
+                    : bsa_dkv_dsplit_wgmma_kernel<D, kDense, false>;
+  err = set_smem(kernel, dkv_dsplit_smem<D>());
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(2 * bh, sk / kTile), kConsumerThreads, dkv_dsplit_smem<D>(),
+           st>>>(tq, tk, tv, tdo, tdk, tdv, static_cast<const float*>(lse),
+                 static_cast<const float*>(delta), L, sq, sk, causal, scale,
+                 drop);
+  return cudaGetLastError();
+}
+
+// The bf16 dK/dV at padded head dim d 320, 384, 448 or 512 over a
+// block-sparse kv-major list (block sizes 128-multiples that tile both
+// sequences, L.order set; no dropout) or, kDense, dense_list(sq) (lengths
+// 64-multiples); any other d is refused.
+template <bool kDense>
+cudaError_t launch_dkv_dsplit_wgmma(int d, const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* delta,
+                                    void* dk, void* dv, BlockList L, int bh,
+                                    int sq, int sk, int causal, float scale,
+                                    Dropout drop, cudaStream_t st) {
+  switch (d) {
+    case 320:
+      return launch_dkv_dsplit_wgmma_at<320, kDense>(
+          q, k, v, dout, lse, delta, dk, dv, L, bh, sq, sk, causal, scale,
+          drop, st);
+    case 384:
+      return launch_dkv_dsplit_wgmma_at<384, kDense>(
+          q, k, v, dout, lse, delta, dk, dv, L, bh, sq, sk, causal, scale,
+          drop, st);
+    case 448:
+      return launch_dkv_dsplit_wgmma_at<448, kDense>(
+          q, k, v, dout, lse, delta, dk, dv, L, bh, sq, sk, causal, scale,
+          drop, st);
+    case 512:
+      return launch_dkv_dsplit_wgmma_at<512, kDense>(
+          q, k, v, dout, lse, delta, dk, dv, L, bh, sq, sk, causal, scale,
+          drop, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

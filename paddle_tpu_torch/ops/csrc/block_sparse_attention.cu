@@ -15,9 +15,10 @@
 //                           bsa_dkv_wgmma_kernel (below)
 //   bf16 at 192, 256        bsa_fwd_wgmma_kernel, bsa_dq_wgmma_kernel,
 //                           bsa_dkv_split_wgmma_kernel (attention_wgmma.cuh)
-//   bf16 at 320..512        bsa_fwd_dsplit_wgmma_kernel (attention_wgmma.cuh,
-//                           D split across warpgroups); dQ and dK/dV the
-//                           wide kernels of wide_attention.cuh
+//   bf16 at 320..512        bsa_fwd_dsplit_wgmma_kernel,
+//                           bsa_dq_dsplit_wgmma_kernel,
+//                           bsa_dkv_dsplit_wgmma_kernel (attention_wgmma.cuh,
+//                           D split across warpgroups or blocks)
 //   fp32 at 192..512        the wide kernels of wide_attention.cuh
 // The TPU grid is (BH, n blocks, list slot): each step's BlockSpec index
 // map reads the list, so inactive blocks are never copied from HBM, and
@@ -458,14 +459,13 @@ BlockList make_list(const void* idx, const void* count, const void* order,
 
 // Dispatch on (dtype, padded head dim): dtype 0 = float32 runs the FMA
 // kernels (FP32), 1 = bfloat16 the tensor-core kernels (BF16), at
-// head_dim 64 or 128; head_dim 192..512 (multiples of 64) runs the wide
-// kernels (WIDE, wide_attention.cuh) in either dtype, except bf16 at 192
-// and 256 (the list kernels of attention_wgmma.cuh) and the bf16 forward
-// at 320..512 (bsa_fwd_dsplit_wgmma_kernel), picked in each entry point
-// before this dispatch (the forward's WIDE takes fp32 alone). The
+// head_dim 64 or 128; fp32 at head_dim 192..512 (multiples of 64) runs the
+// wide kernels (WIDE, wide_attention.cuh). bf16 past 128 is picked in each
+// entry point before this dispatch: the list kernels of
+// attention_wgmma.cuh at 192 and 256, its D-split kernels at 320..512. The
 // arguments are the kernels' up to sq, sk; causal, scale and the stream
-// follow (with head_dim before them for WIDE). Everything else is refused with
-// cudaErrorInvalidValue before any launch.
+// follow (with head_dim before them for WIDE). Everything else is refused
+// with cudaErrorInvalidValue before any launch.
 #define BSA_DISPATCH(FP32, BF16, WIDE, ...)                                 \
   do {                                                                      \
     if (dtype == 0 && head_dim == 64)                                       \
@@ -477,11 +477,8 @@ BlockList make_list(const void* idx, const void* count, const void* order,
     if (dtype == 1 && head_dim == 128)                                      \
       return (int)BF16<128>(__VA_ARGS__, causal, scale, st);                \
     if (wide_head_dim(head_dim) && dtype == 0)                              \
-      return (int)WIDE<float>(__VA_ARGS__, head_dim, causal, scale,         \
-                              Dropout{}, st);                               \
-    if (wide_head_dim(head_dim) && dtype == 1)                              \
-      return (int)WIDE<__nv_bfloat16>(__VA_ARGS__, head_dim, causal, scale, \
-                                      Dropout{}, st);                       \
+      return (int)WIDE(__VA_ARGS__, head_dim, causal, scale, Dropout{},     \
+                       st);                                                 \
     return (int)cudaErrorInvalidValue;                                      \
   } while (0)
 
@@ -533,6 +530,11 @@ int bsa_dq_launch(const void* q, const void* k, const void* v,
   if (dtype == 1 && head_dim == 256)
     return (int)launch_dq_wgmma<256>(q, k, v, dout, lse, delta, dq, L, bh,
                                      sq, sk, causal, scale, st);
+  // bf16 at 320..512: D split across two warpgroups
+  if (dtype == 1 && head_dim > 256 && wide_head_dim(head_dim))
+    return (int)launch_dq_dsplit_wgmma<false>(head_dim, q, k, v, dout, lse,
+                                              delta, dq, L, bh, sq, sk,
+                                              causal, scale, Dropout{}, st);
   BSA_DISPATCH(launch_dq, launch_dq_wgmma, launch_wide_dq, q, k, v, dout,
                lse, delta, dq, L, bh, sq, sk);
 }
@@ -558,6 +560,11 @@ int bsa_dkv_launch(const void* q, const void* k, const void* v,
     return (int)launch_bsa_dkv_split_wgmma<256, false>(
         q, k, v, dout, lse, delta, dk, dv, L, bh, sq, sk, causal, scale,
         Dropout{}, st);
+  // bf16 at 320..512: D split across two blocks, a role a warpgroup
+  if (dtype == 1 && head_dim > 256 && wide_head_dim(head_dim))
+    return (int)launch_dkv_dsplit_wgmma<false>(
+        head_dim, q, k, v, dout, lse, delta, dk, dv, L, bh, sq, sk, causal,
+        scale, Dropout{}, st);
   BSA_DISPATCH(launch_dkv, launch_dkv_wgmma, launch_wide_dkv, q, k, v, dout,
                lse, delta, dk, dv, L, bh, sq, sk);
 }

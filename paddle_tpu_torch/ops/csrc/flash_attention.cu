@@ -1,9 +1,9 @@
 // Flash attention for Hopper (sm_90a), written by hand: forward, dQ and
 // dK/dV, on [BH, S, D] tensors (D padded to a multiple of 64 up to 512 by
 // the wrapper; bf16 at D 192 and 256 runs the list kernels of
-// attention_wgmma.cuh over a dense walk, the bf16 forward at 320..512
-// that header's bsa_fwd_dsplit_wgmma_kernel, and fp32 past 128 and the
-// bf16 dQ and dK/dV at 320..512 the wide kernels of wide_attention.cuh).
+// attention_wgmma.cuh over a dense walk, bf16 at 320..512 that header's
+// D-split kernels, and fp32 past 128 the wide kernels of
+// wide_attention.cuh).
 //
 // Replaces the three Pallas TPU kernels of
 // paddle_tpu/ops/pallas/flash_attention.py:
@@ -12,8 +12,9 @@
 //   fa_dkv_kernel, fa_dkv_wgmma_kernel  <- _fa_dkv_kernel (:316, call :397)
 // and, in bf16 at padded D 192 and 256, the list kernels of
 // attention_wgmma.cuh over a dense walk: bsa_fwd_wgmma_kernel,
-// bsa_dq_wgmma_kernel and bsa_dkv_split_wgmma_kernel; the bf16 forward at
-// 320..512 is bsa_fwd_dsplit_wgmma_kernel (D split across warpgroups).
+// bsa_dq_wgmma_kernel and bsa_dkv_split_wgmma_kernel; at 320..512 that
+// header's bsa_fwd_dsplit_wgmma_kernel, bsa_dq_dsplit_wgmma_kernel and
+// bsa_dkv_dsplit_wgmma_kernel (D split across warpgroups or blocks).
 // Each computes what its TPU kernel computes; none is carried over block
 // by block. The TPU grids walk the inner tile loop in order and carry
 // (m, l, acc) or the dq / dk,dv sums in VMEM scratch across grid steps; on
@@ -730,13 +731,13 @@ Dropout make_dropout(unsigned seed, unsigned threshold, float keep_div,
 
 // Dispatch on (dtype, padded head dim): dtype 0 = float32 runs the FMA
 // kernels (FP32), 1 = bfloat16 the tensor-core kernels (BF16), at head_dim
-// 64 or 128; head_dim 192..512 (multiples of 64) runs the wide kernels
-// (WIDE) in either dtype, over a dense walk, except bf16 at 192 and 256
-// (the list kernels of attention_wgmma.cuh) and the bf16 forward at
-// 320..512 (bsa_fwd_dsplit_wgmma_kernel), picked in each entry point
-// before this dispatch (the forward's WIDE takes fp32 alone).
-// Everything else is refused with cudaErrorInvalidValue before any
-// launch.
+// 64 or 128; fp32 at head_dim 192..512 (multiples of 64) runs the wide
+// kernels (WIDE) over a dense walk. bf16 past 128 is picked in each entry
+// point before this dispatch: the list kernels of attention_wgmma.cuh at
+// 192 and 256, its D-split kernels at 320..512
+// (bsa_fwd_dsplit_wgmma_kernel, bsa_dq_dsplit_wgmma_kernel,
+// bsa_dkv_dsplit_wgmma_kernel). Everything else is refused with
+// cudaErrorInvalidValue before any launch.
 #define FA_DISPATCH(FP32, BF16, WIDE, WALK, ...)                           \
   do {                                                                     \
     if (dtype == 0 && head_dim == 64)                                      \
@@ -746,9 +747,7 @@ Dropout make_dropout(unsigned seed, unsigned threshold, float keep_div,
     if (dtype == 1 && head_dim == 64) return (int)BF16<64>(__VA_ARGS__);   \
     if (dtype == 1 && head_dim == 128) return (int)BF16<128>(__VA_ARGS__); \
     if (wide_head_dim(head_dim) && dtype == 0)                             \
-      return (int)WIDE<float> WALK;                                        \
-    if (wide_head_dim(head_dim) && dtype == 1)                             \
-      return (int)WIDE<__nv_bfloat16> WALK;                                \
+      return (int)WIDE WALK;                                               \
     return (int)cudaErrorInvalidValue;                                     \
   } while (0)
 
@@ -801,6 +800,11 @@ int fa_dq_launch(const void* q, const void* k, const void* v,
     return (int)launch_bsa_dq_wgmma<256, true>(q, k, v, dout, lse, delta, dq,
                                          dense_list(sk), bh, sq, sk, causal,
                                          scale, drop, st);
+  // bf16 at 320..512: D split across two warpgroups
+  if (dtype == 1 && head_dim > 256 && wide_head_dim(head_dim))
+    return (int)launch_dq_dsplit_wgmma<true>(head_dim, q, k, v, dout, lse,
+                                             delta, dq, dense_list(sk), bh,
+                                             sq, sk, causal, scale, drop, st);
   FA_DISPATCH(launch_dq, launch_dq_wgmma, launch_wide_dq,
               (q, k, v, dout, lse, delta, dq, dense_list(sk), bh, sq, sk,
                head_dim, causal, scale, drop, st),
@@ -827,6 +831,11 @@ int fa_dkv_launch(const void* q, const void* k, const void* v,
     return (int)launch_bsa_dkv_split_wgmma<256, true>(
         q, k, v, dout, lse, delta, dk, dv, dense_list(sq), bh, sq, sk, causal,
         scale, drop, st);
+  // bf16 at 320..512: D split across two blocks, a role a warpgroup
+  if (dtype == 1 && head_dim > 256 && wide_head_dim(head_dim))
+    return (int)launch_dkv_dsplit_wgmma<true>(
+        head_dim, q, k, v, dout, lse, delta, dk, dv, dense_list(sq), bh, sq,
+        sk, causal, scale, drop, st);
   FA_DISPATCH(launch_dkv, launch_dkv_wgmma, launch_wide_dkv,
               (q, k, v, dout, lse, delta, dk, dv, dense_list(sq), bh, sq, sk,
                head_dim, causal, scale, drop, st),

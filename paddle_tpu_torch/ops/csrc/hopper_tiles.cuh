@@ -215,6 +215,9 @@ __device__ __forceinline__ void wg_fence_regs(float (&r)[N][4]) {
   "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3]),               \
       "+f"(d[j + 1][0]), "+f"(d[j + 1][1]), "+f"(d[j + 1][2]),               \
       "+f"(d[j + 1][3])
+#define WG_D16                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                                      \
+  "%8, %9, %10, %11, %12, %13, %14, %15}"
 #define WG_D32                                                             \
   "{%0, %1, %2, %3, %4, %5, %6, %7, "                                      \
   "%8, %9, %10, %11, %12, %13, %14, %15, "                                 \
@@ -235,6 +238,17 @@ __device__ __forceinline__ void wg_fence_regs(float (&r)[N][4]) {
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t da,
                                          uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[4][4], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WG_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : WG_F8(d, 0), WG_F8(d, 2)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[8][4], uint64_t da,
@@ -313,6 +327,7 @@ __device__ __forceinline__ void wgmma_rs_t<256>(float (&d)[32][4],
 #undef WG_RS_T64
 #undef WG_RS_T128
 #undef WG_F8
+#undef WG_D16
 #undef WG_D32
 #undef WG_D64
 

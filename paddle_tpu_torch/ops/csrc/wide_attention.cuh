@@ -1,19 +1,17 @@
 // Attention kernels for padded head dims past 128 (192, 256, ..., 512),
-// written by hand for Hopper (sm_90a): forward (fp32), dQ and dK/dV (fp32
-// and bf16), shared by the flash kernels (flash_attention.cu, which walk every
-// kv tile, with dropout) and the block-sparse kernels
+// written by hand for Hopper (sm_90a), fp32 only: forward, dQ and dK/dV,
+// shared by the flash kernels (flash_attention.cu, which walk every kv
+// tile, with dropout) and the block-sparse kernels
 // (block_sparse_attention.cu, which walk their compacted lists).
 //
 // They replace, at these head dims, the same Pallas TPU kernels as the
 // narrow kernels of those files: _fa_fwd_kernel, _fa_dq_kernel and
 // _fa_dkv_kernel (paddle_tpu/ops/pallas/flash_attention.py) and
 // _bsa_fwd_kernel, _bsa_dq_kernel and _bsa_dkv_kernel
-// (paddle_tpu/ops/pallas/block_sparse_attention.py). They run fp32 at
-// every padded head dim past 128 and the bf16 dQ and dK/dV at 320..512;
-// bf16 at 192 and 256 runs the wgmma list kernels of attention_wgmma.cuh
-// instead, and the bf16 forward at 320..512 that header's
-// bsa_fwd_dsplit_wgmma_kernel (D split across two warpgroups), so no bf16
-// wide_fwd_kernel is built.
+// (paddle_tpu/ops/pallas/block_sparse_attention.py), in fp32 at every
+// padded head dim past 128. bf16 past 128 runs the wgmma kernels of
+// attention_wgmma.cuh instead (the list kernels at 192 and 256, the
+// D-split kernels at 320..512), so no bf16 wide kernel is built.
 //
 // Why a path of their own: at D = 512 a 64-row fp32 tile is 128 KB, so
 // the narrow kernels' tiles (dQ holds four) do not fit the 227 KB of
@@ -28,14 +26,11 @@
 // work, for shared memory and registers that do not grow with D (67, 83
 // and 101 KB a block; the FMA units' 4 x 4 register tiles).
 //
-// Bound on the H100 SXM (989 TFLOP/s bf16, 67 TFLOP/s fp32, 3.35 TB/s):
-// operations, as at D <= 128 (4 D FLOP a pair forward, 6 D dQ, 8 D
-// dK/dV); these kernels run on the FMA units in both dtypes and repeat
-// the scores per slice, so they are far from it (100-300x in bf16). Right
-// and simple first.
+// Bound on the H100 SXM (67 TFLOP/s fp32, 3.35 TB/s): operations, as at
+// D <= 128 (4 D FLOP a pair forward, 6 D dQ, 8 D dK/dV); these kernels
+// run on the FMA units and repeat the scores per slice (9-12x their
+// bound). Right and simple first.
 #pragma once
-
-#include <type_traits>
 
 #include "attention_tiles.cuh"
 
@@ -229,60 +224,56 @@ inline bool wide_head_dim(int d) {
   return d > 128 && d <= 512 && d % kSlice == 0;
 }
 
-// fp32 only: every bf16 forward past 128 is picked before the dispatch
-template <typename T>
-cudaError_t launch_wide_fwd(const void* q, const void* k, const void* v,
-                            void* out, void* lse, BlockList L, int bh,
-                            int sq, int sk, int d, int causal, float scale,
-                            Dropout drop, cudaStream_t st) {
-  if constexpr (!std::is_same_v<T, float>) {
-    return cudaErrorInvalidValue;
-  } else {
-    auto kernel = wide_fwd_kernel<T>;
-    cudaError_t err = set_smem(kernel, kWideFwdSmem);
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3(sq / kTile, bh, d / kSlice), kThreads, kWideFwdSmem,
-             st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                   static_cast<const T*>(v), static_cast<T*>(out),
-                   static_cast<float*>(lse), L, sq, sk, d, causal, scale,
-                   drop);
-    return cudaGetLastError();
-  }
-}
-
-template <typename T>
-cudaError_t launch_wide_dq(const void* q, const void* k, const void* v,
-                           const void* dout, const void* lse,
-                           const void* delta, void* dq, BlockList L, int bh,
-                           int sq, int sk, int d, int causal, float scale,
-                           Dropout drop, cudaStream_t st) {
-  auto kernel = wide_dq_kernel<T>;
-  cudaError_t err = set_smem(kernel, kWideDqSmem);
+// fp32 only: every bf16 call past 128 is picked before the dispatch (the
+// wgmma kernels of attention_wgmma.cuh), so no bf16 wide kernel is built
+inline cudaError_t launch_wide_fwd(const void* q, const void* k,
+                                   const void* v, void* out, void* lse,
+                                   BlockList L, int bh, int sq, int sk, int d,
+                                   int causal, float scale, Dropout drop,
+                                   cudaStream_t st) {
+  auto kernel = wide_fwd_kernel<float>;
+  cudaError_t err = set_smem(kernel, kWideFwdSmem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(sq / kTile, bh, d / kSlice), kThreads, kWideDqSmem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), L, sq, sk, d, causal, scale, drop);
+  kernel<<<dim3(sq / kTile, bh, d / kSlice), kThreads, kWideFwdSmem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), L, sq, sk, d, causal, scale, drop);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_wide_dkv(const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse,
-                            const void* delta, void* dk, void* dv,
-                            BlockList L, int bh, int sq, int sk, int d,
-                            int causal, float scale, Dropout drop,
-                            cudaStream_t st) {
-  auto kernel = wide_dkv_kernel<T>;
+inline cudaError_t launch_wide_dq(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* lse, const void* delta,
+                                  void* dq, BlockList L, int bh, int sq,
+                                  int sk, int d, int causal, float scale,
+                                  Dropout drop, cudaStream_t st) {
+  auto kernel = wide_dq_kernel<float>;
+  cudaError_t err = set_smem(kernel, kWideDqSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(sq / kTile, bh, d / kSlice), kThreads, kWideDqSmem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), L, sq, sk, d, causal, scale, drop);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_wide_dkv(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const void* lse, const void* delta,
+                                   void* dk, void* dv, BlockList L, int bh,
+                                   int sq, int sk, int d, int causal,
+                                   float scale, Dropout drop,
+                                   cudaStream_t st) {
+  auto kernel = wide_dkv_kernel<float>;
   cudaError_t err = set_smem(kernel, kWideDkvSmem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(sk / kTile, bh, d / kSlice), kThreads, kWideDkvSmem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), L, sq, sk, d, causal, scale,
-      drop);
+      static_cast<float*>(dk), static_cast<float*>(dv), L, sq, sk, d, causal,
+      scale, drop);
   return cudaGetLastError();
 }
 

@@ -45,9 +45,9 @@ KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_dq",
                 "flash_attention_dkv")
 _SOURCE = "flash_attention"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# bf16 at 192 and 256 runs the list kernels, the bf16 forward past 256
-# bsa_fwd_dsplit_wgmma_kernel, fp32 past 128 and the bf16 dQ and dK/dV
-# past 256 the wide kernels
+# bf16 at 192 and 256 runs the list kernels, bf16 past 256 the D-split
+# kernels (bsa_fwd_dsplit_wgmma_kernel, bsa_dq_dsplit_wgmma_kernel,
+# bsa_dkv_dsplit_wgmma_kernel), fp32 past 128 the wide kernels
 _HEAD_DIMS = tuple(range(64, 513, 64))
 _TILE = 64
 _M32 = 0xFFFFFFFF

@@ -1271,6 +1271,137 @@ def test_dsplit_forward_limit_rejects_a_short_depth_or_offset(
         assert err > REL_TOL[torch.bfloat16]
 
 
+
+def _backward_agrees(fwd, dq, dkv, q, k, v, do, args, names, dtype):
+    """One dQ call and one dK/dV call (on the plain forward's lse and
+    delta) each launch their kernel once, and agree with the plain
+    versions; rows that see no column (lse -inf) get dq 0, kv rows where
+    the plain dk and dv are both 0 (no row sees them) dk and dv 0. (Which
+    kernel ran is read from the profiler in
+    test_backward_dispatch_takes_the_wgmma_list_kernels.)"""
+    out, lse = fwd(q, k, v, *args, impl="torch")
+    delta = (do.float() * out.float()).sum(-1)
+    got = {}
+    for kind, call, name in (("dq", dq, names[1]), ("dkv", dkv, names[2])):
+        _build.reset_launches()
+        got[kind] = call(q, k, v, do, lse, delta, *args)
+        torch.cuda.synchronize()
+        assert _build.launches() == {name: 1}
+    want_dq = dq(q, k, v, do, lse, delta, *args, impl="torch")
+    want_dkv = dkv(q, k, v, do, lse, delta, *args, impl="torch")
+    _close(got["dq"], want_dq, dtype)
+    assert (got["dq"][torch.isinf(lse)] == 0).all()
+    unseen = (want_dkv[0].float().abs().amax(-1) == 0) & (
+        want_dkv[1].float().abs().amax(-1) == 0)
+    for a, b in zip(got["dkv"], want_dkv):
+        _close(a, b, dtype)
+        assert (a[unseen] == 0).all()
+
+
+@pytest.mark.parametrize("d", [320, 384, 448, 512])
+@pytest.mark.parametrize("bh,sq,sk,causal,dropout", DSPLIT_FLASH_CASES)
+def test_dsplit_backward_matches_plain_flash(card, bh, sq, sk, causal,
+                                             dropout, d):
+    """The bf16 flash dQ and dK/dV past D 256 (bsa_dq_dsplit_wgmma_kernel,
+    whose two warpgroups split dQ's column blocks, and
+    bsa_dkv_dsplit_wgmma_kernel, whose blocks split dK's and dV's) launch
+    once each and agree with the plain versions, dropout keep bits and
+    causal offsets included."""
+    from paddle_tpu_torch.ops.flash_attention import (KERNEL_NAMES,
+                                                      flash_dkv, flash_dq,
+                                                      flash_fwd)
+
+    q, k, v, do = flash_inputs(bh, sq, sk, d, torch.bfloat16, card,
+                               seed=sq + sk + d + 1)
+    _backward_agrees(flash_fwd, flash_dq, flash_dkv, q, k, v, do,
+                     (causal, d ** -0.5, dropout, 77), KERNEL_NAMES,
+                     torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [320, 384, 448, 512])
+@pytest.mark.parametrize("bh,sq,sk,blk_q,blk_k,causal,empty",
+                         DSPLIT_SPARSE_CASES)
+def test_dsplit_backward_matches_plain_sparse(card, bh, sq, sk, blk_q,
+                                              blk_k, causal, empty, d):
+    """The bf16 block-sparse dQ and dK/dV past D 256 (the D-split kernels
+    over the q-major and kv-major lists) launch once each and agree with
+    the plain versions: rows that see no column and a kv block nothing
+    attends give exact zeros."""
+    from paddle_tpu_torch.ops.block_sparse_attention import (KERNEL_NAMES,
+                                                             bsa_dkv, bsa_dq,
+                                                             bsa_fwd)
+
+    spec, q, k, v, do = bsa_case(bh, sq, sk, d, blk_q, blk_k, causal, empty,
+                                 torch.bfloat16, card)
+    _backward_agrees(bsa_fwd, bsa_dq, bsa_dkv, q, k, v, do,
+                     (spec, causal, d ** -0.5), KERNEL_NAMES, torch.bfloat16)
+
+
+# the D-split backward broken four ways: kind -> (file, kernel, a line of
+# it, the line broken); the kind's first word names the output it breaks
+DSPLIT_BWD_MUTATIONS = {
+    # S and dP leave their last 64 columns of depth out
+    "dq_depth": ("attention_wgmma.cuh", "bsa_dq_dsplit_wgmma_kernel",
+                 "dq_tile_wgmma<D, kOwn * 64, R, kTile>(",
+                 "dq_tile_wgmma<D - 64, kOwn * 64, R, kTile>("),
+    # warpgroup 1 multiplies ds by K's first column blocks
+    "dq_columns": ("attention_wgmma.cuh", "bsa_dq_dsplit_wgmma_kernel",
+                   "((j + 1) / kSlots) & 1); }, own0);",
+                   "((j + 1) / kSlots) & 1); }, 0);"),
+    # role P's S^T leaves its last 64 columns of depth out
+    "dkv_depth": ("attention_wgmma.cuh", "bsa_dkv_dsplit_wgmma_kernel",
+                  "dkv_p_tile_wgmma<D, kOwn * 64, R>(",
+                  "dkv_p_tile_wgmma<D - 64, kOwn * 64, R>("),
+    # part 1's role dS multiplies ds^T by Q's first column blocks
+    "dkv_columns": ("attention_wgmma.cuh", "bsa_dkv_dsplit_wgmma_kernel",
+                    "i + 1 < n_t, own0, then);",
+                    "i + 1 < n_t, 0, then);"),
+}
+
+
+def test_dsplit_backward_limit_rejects_a_short_depth_or_offset(
+        card, tmp_path, monkeypatch):
+    """The bf16 limit tells the D-split dQ and dK/dV from broken ones: the
+    flash source is rebuilt beside copies of attention_wgmma.cuh whose dQ
+    warpgroups leave the last 64 columns of Q, K, dO and V out of S and
+    dP, whose second dQ warpgroup multiplies ds by K's first column
+    blocks, whose dK/dV role P leaves the last 64 columns out of S^T, and
+    whose second dK/dV part multiplies ds^T by Q's first column blocks; at
+    flash's wide shape (BH 16, S 1024, causal) at D 512 and D 320 each
+    result must miss REL_TOL, while the right kernels meet it. Prints both
+    readings."""
+    import ctypes
+
+    cases = {}
+    for d in (320, 512):
+        q, k, v, do = flash_inputs(16, 1024, 1024, d, torch.bfloat16, card,
+                                   seed=51 + d)
+        args = (True, d ** -0.5, 0.0, 0)
+        for kind in ("dq", "dkv"):
+            cases[kind, d] = (lambda kind=kind, t=(q, k, v, do), a=args,
+                              **kw: _flash_case(kind, *t, a, **kw))
+    want = {case: fn(impl="torch") for case, fn in cases.items()}
+    right = {case: rel_err(fn(), want[case]) for case, fn in cases.items()}
+    procs = {kind: _build_mutant(kind, tmp_path / kind, DSPLIT_BWD_MUTATIONS,
+                                 "flash_attention.cu")
+             for kind in DSPLIT_BWD_MUTATIONS}
+    broken_err = {}
+    for kind, (lib, proc) in procs.items():
+        out = proc.communicate()[0]
+        assert proc.returncode == 0, out.decode()[-2000:]
+        monkeypatch.setitem(_build._LIBS, "flash_attention",
+                            ctypes.CDLL(str(lib)))
+        for (out_kind, d), fn in cases.items():
+            if kind.startswith(out_kind + "_"):
+                broken_err[kind, d] = rel_err(fn(), want[out_kind, d])
+    print(f"D-split backward bf16 rel err, right kernels: {right}; broken: "
+          f"{broken_err}; limit {REL_TOL[torch.bfloat16]}")
+    for err in right.values():
+        assert err <= REL_TOL[torch.bfloat16]
+    assert len(broken_err) == 2 * len(DSPLIT_BWD_MUTATIONS)
+    for err in broken_err.values():
+        assert err > REL_TOL[torch.bfloat16]
+
 # The tests below that read kernel names from torch.profiler come after
 # every test that launches a kernel for the first time: a kernel first
 # launched (its module loaded, lazily) after a profiler window has torn
@@ -1373,18 +1504,22 @@ def _backward_case(family, dtype, d, device):
 @pytest.mark.parametrize("family", ["flash", "sparse"])
 @pytest.mark.parametrize("dtype,d", [
     (torch.bfloat16, 128), (torch.bfloat16, 192), (torch.bfloat16, 256),
-    (torch.bfloat16, 512), (torch.float32, 256)])
+    (torch.bfloat16, 512), (torch.float32, 256), (torch.bfloat16, 320),
+    (torch.bfloat16, 384), (torch.bfloat16, 448)])
 def test_backward_dispatch_takes_the_wgmma_list_kernels(card, family, dtype,
                                                         d):
     """The backward's dispatch: bf16 at padded D 192 and 256 runs
     bsa_dq_wgmma_kernel and bsa_dkv_split_wgmma_kernel in both families;
-    bf16 at 512 and fp32 past 128 stay on wide_dq_kernel and
-    wide_dkv_kernel; bf16 at 128 on each family's own wgmma kernels. One
-    launch each, counted, within the limits."""
+    bf16 at 320, 384, 448 and 512 bsa_dq_dsplit_wgmma_kernel and
+    bsa_dkv_dsplit_wgmma_kernel in both families; fp32 past 128 stays on
+    wide_dq_kernel and wide_dkv_kernel; bf16 at 128 on each family's own
+    wgmma kernels. One launch each, counted, within the limits."""
     dq, dkv, names = _backward_case(family, dtype, d, card)
     bf16 = dtype == torch.bfloat16
     if bf16 and d in (192, 256):
         want = ("bsa_dq_wgmma_kernel", "bsa_dkv_split_wgmma_kernel")
+    elif bf16 and d > 256:
+        want = ("bsa_dq_dsplit_wgmma_kernel", "bsa_dkv_dsplit_wgmma_kernel")
     elif d > 128:
         want = ("wide_dq_kernel", "wide_dkv_kernel")
     elif family == "flash":
@@ -1405,12 +1540,13 @@ def test_backward_dispatch_takes_the_wgmma_list_kernels(card, family, dtype,
 
 
 @pytest.mark.parametrize("family", ["flash", "sparse"])
-@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("d", [192, 256, 320, 512])
 def test_split_dkv_is_deterministic(card, family, d):
-    """bsa_dkv_split_wgmma_kernel keeps the reference's split from dQ and
-    uses no atomics: two runs give the same bits (flash with causal
-    dropout, block-sparse on a BigBird-like pattern with an empty kv
-    block)."""
+    """bsa_dkv_split_wgmma_kernel (D 192, 256) and
+    bsa_dkv_dsplit_wgmma_kernel (D 320, 512) keep the reference's split
+    from dQ and use no atomics: two runs give the same bits (flash with
+    causal dropout, block-sparse on a BigBird-like pattern with an empty
+    kv block)."""
     from paddle_tpu_torch.ops import block_sparse_attention as bsa
     from paddle_tpu_torch.ops import flash_attention as fa
 
