@@ -20,16 +20,16 @@
 //   bsa_fwd_dsplit_wgmma_kernel the forward at 320..512, both families: a
 //                               64-row block whose two warpgroups split D
 //   bsa_dq_dsplit_wgmma_kernel  dQ at 320..512, both families: the same
-//                               split, over 32-row kv tiles
+//                               split
 //   bsa_dkv_dsplit_wgmma_kernel dK/dV at 320..512, both families: two
 //                               blocks split D, each with the two roles
 //
 // A block owns a 128-row tile (q rows in the forward and dQ, kv rows in
 // dK/dV; 64 rows in the split and D-split kernels) and is two consumer
 // warpgroups of 64 of its rows each (of all 64, split by role or by D, in
-// those); the other side's tiles (64 rows; 32 in the D-split dQ, and in
-// the D-split dK/dV past D 320) stream through a ring of shared-memory
-// stages, loaded by TMA (hopper_tiles.cuh's layout contract: 128-byte swizzle, column
+// those); the other side's tiles (64 rows; 32 in the D-split backward
+// past D 320) stream through a ring of shared-memory stages, loaded by
+// TMA (hopper_tiles.cuh's layout contract: 128-byte swizzle, column
 // blocks of 64). Every product is wgmma: operands in shared memory, or p
 // / ds re-packed from accumulators as register A fragments (rounded to
 // bf16, as the reference casts them).
@@ -631,6 +631,28 @@ cudaError_t launch_bsa_fwd_wgmma(const void* q, const void* k, const void* v,
 // 16, S 1024, D 512, causal 17.2 GFLOP (0.017 ms) against 67 MB (0.020
 // ms, the bound).
 
+template <int N>
+struct IntC {
+  static constexpr int value = N;
+};
+
+// f(IntC<d>{}) for a padded head dim d the D-split kernels take (320, 384,
+// 448, 512); any other d is refused.
+template <typename F>
+cudaError_t dsplit_head_dim(int d, const F& f) {
+  switch (d) {
+    case 320:
+      return f(IntC<320>{});
+    case 384:
+      return f(IntC<384>{});
+    case 448:
+      return f(IntC<448>{});
+    case 512:
+      return f(IntC<512>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <int D>
 __host__ __device__ constexpr size_t fwd_dsplit_smem_at(int slots) {
   return 1024 + (1 + slots) * tile_bytes<D>(kTile) + (1 + 2 * slots) * 8;
@@ -650,11 +672,6 @@ static_assert(fwd_dsplit_smem<320>() <= 232448 &&
                   fwd_dsplit_smem<448>() <= 232448 &&
                   fwd_dsplit_smem<512>() <= 232448,
               "a block asks for more than 227 KB of shared memory");
-
-template <int N>
-struct IntC {
-  static constexpr int value = N;
-};
 
 template <int D>
 __global__ void __launch_bounds__(kConsumerThreads, 1)
@@ -821,21 +838,10 @@ inline cudaError_t launch_fwd_dsplit_wgmma(int d, const void* q,
                                            int bh, int sq, int sk, int causal,
                                            float scale, Dropout drop,
                                            cudaStream_t st) {
-  switch (d) {
-    case 320:
-      return launch_fwd_dsplit_wgmma_at<320>(q, k, v, out, lse, L, bh, sq,
-                                             sk, causal, scale, drop, st);
-    case 384:
-      return launch_fwd_dsplit_wgmma_at<384>(q, k, v, out, lse, L, bh, sq,
-                                             sk, causal, scale, drop, st);
-    case 448:
-      return launch_fwd_dsplit_wgmma_at<448>(q, k, v, out, lse, L, bh, sq,
-                                             sk, causal, scale, drop, st);
-    case 512:
-      return launch_fwd_dsplit_wgmma_at<512>(q, k, v, out, lse, L, bh, sq,
-                                             sk, causal, scale, drop, st);
-  }
-  return cudaErrorInvalidValue;
+  return dsplit_head_dim(d, [&](auto dc) {
+    return launch_fwd_dsplit_wgmma_at<decltype(dc)::value>(
+        q, k, v, out, lse, L, bh, sq, sk, causal, scale, drop, st);
+  });
 }
 
 // ------------------------------------------------- dQ over a BlockList
@@ -1430,13 +1436,17 @@ cudaError_t launch_bsa_dkv_split_wgmma(const void* q, const void* k,
 // dQ: a block owns 64 q rows (Q and dO loaded once by TMA, 40..64 KB
 // each); its two warpgroups split dQ's column blocks. Per kv tile each
 // computes S = Q K^T and dP = dO V^T itself, then dq[:, own] += ds
-// K[:, own] (dq_tile_wgmma at width 64 kOwn). kv tiles are 32 rows: S and
-// dP then take 16 registers each beside an accumulator of up to 128, and
-// K and V come through a ring of 32-row items of their own (K of tile t
-// item 2t, V item 2t + 1), as many slots as 227 KB hold beside Q and dO
-// (7 at D 320, 5 at 384, 4 at 448, 3 at 512), refilled by thread 0 one
-// tile after their release, as bsa_dq_wgmma_kernel does. Work: S and dP
-// twice, 5 products of a tile against the 3 of one pass.
+// K[:, own] (dq_tile_wgmma at width 64 kOwn). K and V come through a ring
+// of items of their own (K of tile t item 2t, V item 2t + 1), as many
+// slots as 227 KB hold beside Q and dO, refilled by thread 0 one tile
+// after their release, as bsa_dq_wgmma_kernel does. kv tiles are 64 rows
+// at D 320 (3 slots) and 32 past it (5, 4, 3 slots at D 384, 448, 512;
+// 64-row tiles would leave 2, 2, 1): S and dP then take 16 registers each
+// beside an accumulator of up to 128. At D 320 on an H100
+// (ops/dsplit_backward_ab.py at commit 6d6f3cf), dQ on 32-row kv tiles
+// (7 slots) ran 1.3-1.5x slower than on 64-row ones, and dK/dV (below)
+// on 32-row q tiles (6 slots) 1.0-1.5x slower than on 64-row ones. Work:
+// S and dP twice, 5 products of a tile against the 3 of one pass.
 //
 // dK/dV: a block owns 64 kv rows and one part of dK's and dV's column
 // blocks (a grid axis: blockIdx.x = 2 bh + part, both parts of a kv tile
@@ -1445,8 +1455,8 @@ cudaError_t launch_bsa_dkv_split_wgmma(const void* q, const void* k,
 // dv[:, own] += p_drop^T dO[:, own]; dS: dP^T, ds^T, dk[:, own] += ds^T
 // Q[:, own]), each with one accumulator of kOwn column blocks. K and V
 // stay resident (80..128 KB); the q tiles come through a ring as items of
-// their own (Q of walk step i item 2i, with its lse and delta; dO item
-// 2i + 1): 64-row q tiles at D 320 (3 slots), 32-row past it (5, 3, 2
+// their own (Q of walk step i item 2i with its rows' lse, dO item 2i + 1
+// with their delta): 64-row q tiles at D 320 (3 slots), 32-row past it (5, 3, 2
 // slots at D 384, 448, 512; 64-row tiles would leave 2, 1, 1). Work: S^T
 // and dP^T once a part, 3 products of a tile against the 2 of one pass.
 // Thread 0 of role dS refills a slot once both roles have released it.
@@ -1464,25 +1474,29 @@ cudaError_t launch_bsa_dkv_split_wgmma(const void* q, const void* k,
 // BH 16, S 1024, D 512, causal: 26.0 GFLOP (0.026 ms) for dQ and 34.6
 // (0.035 ms) for dK/dV, both bound by operations.
 
-// kv rows of dQ's tiles
 template <int D>
-__host__ __device__ constexpr int dq_dsplit_rows() {
-  return 32;
+__host__ __device__ constexpr size_t dq_dsplit_smem_at(int rows, int slots) {
+  return 1024 + 2 * tile_bytes<D>(kTile) + slots * tile_bytes<D>(rows) +
+         (1 + 2 * slots) * 8;
 }
 template <int D>
-__host__ __device__ constexpr size_t dq_dsplit_smem_at(int slots) {
-  return 1024 + 2 * tile_bytes<D>(kTile) +
-         slots * tile_bytes<D>(dq_dsplit_rows<D>()) + (1 + 2 * slots) * 8;
+__host__ __device__ constexpr int dq_dsplit_slots_at(int rows) {
+  int n = 0;
+  while (n < 8 && dq_dsplit_smem_at<D>(rows, n + 1) <= 232448) ++n;
+  return n;
+}
+// kv rows of dQ's tiles: 64 where that leaves 3 ring slots, else 32
+template <int D>
+__host__ __device__ constexpr int dq_dsplit_rows() {
+  return dq_dsplit_slots_at<D>(kTile) >= 3 ? kTile : 32;
 }
 template <int D>
 __host__ __device__ constexpr int dq_dsplit_slots() {
-  int n = 2;
-  while (n < 8 && dq_dsplit_smem_at<D>(n + 1) <= 232448) ++n;
-  return n;
+  return dq_dsplit_slots_at<D>(dq_dsplit_rows<D>());
 }
 template <int D>
 constexpr size_t dq_dsplit_smem() {
-  return dq_dsplit_smem_at<D>(dq_dsplit_slots<D>());
+  return dq_dsplit_smem_at<D>(dq_dsplit_rows<D>(), dq_dsplit_slots<D>());
 }
 
 template <int D>
@@ -1700,25 +1714,11 @@ cudaError_t launch_dq_dsplit_wgmma(int d, const void* q, const void* k,
                                    void* dq, BlockList L, int bh, int sq,
                                    int sk, int causal, float scale,
                                    Dropout drop, cudaStream_t st) {
-  switch (d) {
-    case 320:
-      return launch_dq_dsplit_wgmma_at<320, kDense>(
-          q, k, v, dout, lse, delta, dq, L, bh, sq, sk, causal, scale, drop,
-          st);
-    case 384:
-      return launch_dq_dsplit_wgmma_at<384, kDense>(
-          q, k, v, dout, lse, delta, dq, L, bh, sq, sk, causal, scale, drop,
-          st);
-    case 448:
-      return launch_dq_dsplit_wgmma_at<448, kDense>(
-          q, k, v, dout, lse, delta, dq, L, bh, sq, sk, causal, scale, drop,
-          st);
-    case 512:
-      return launch_dq_dsplit_wgmma_at<512, kDense>(
-          q, k, v, dout, lse, delta, dq, L, bh, sq, sk, causal, scale, drop,
-          st);
-  }
-  return cudaErrorInvalidValue;
+  return dsplit_head_dim(d, [&](auto dc) {
+    return launch_dq_dsplit_wgmma_at<decltype(dc)::value, kDense>(
+        q, k, v, dout, lse, delta, dq, L, bh, sq, sk, causal, scale, drop,
+        st);
+  });
 }
 
 template <int D, bool kDense, bool kDropout>
@@ -1921,25 +1921,11 @@ cudaError_t launch_dkv_dsplit_wgmma(int d, const void* q, const void* k,
                                     void* dk, void* dv, BlockList L, int bh,
                                     int sq, int sk, int causal, float scale,
                                     Dropout drop, cudaStream_t st) {
-  switch (d) {
-    case 320:
-      return launch_dkv_dsplit_wgmma_at<320, kDense>(
-          q, k, v, dout, lse, delta, dk, dv, L, bh, sq, sk, causal, scale,
-          drop, st);
-    case 384:
-      return launch_dkv_dsplit_wgmma_at<384, kDense>(
-          q, k, v, dout, lse, delta, dk, dv, L, bh, sq, sk, causal, scale,
-          drop, st);
-    case 448:
-      return launch_dkv_dsplit_wgmma_at<448, kDense>(
-          q, k, v, dout, lse, delta, dk, dv, L, bh, sq, sk, causal, scale,
-          drop, st);
-    case 512:
-      return launch_dkv_dsplit_wgmma_at<512, kDense>(
-          q, k, v, dout, lse, delta, dk, dv, L, bh, sq, sk, causal, scale,
-          drop, st);
-  }
-  return cudaErrorInvalidValue;
+  return dsplit_head_dim(d, [&](auto dc) {
+    return launch_dkv_dsplit_wgmma_at<decltype(dc)::value, kDense>(
+        q, k, v, dout, lse, delta, dk, dv, L, bh, sq, sk, causal, scale,
+        drop, st);
+  });
 }
 
 }  // namespace

@@ -40,22 +40,17 @@ VARIANTS = {"as_is": SLOTS, "two_slots": SLOTS.replace(": 3;", ": 2;")}
 SOURCES = ("flash_attention", "block_sparse_attention")
 
 
-def build(out: Path, variants=None) -> dict:
-    """Each variant's header (name -> its (old, new) line replacements;
-    by default this A/B's slot counts) beside copies of both sources, all
-    built at once: (variant, source) -> library."""
-    if variants is None:
-        variants = {name: [(SLOTS, line)] for name, line in VARIANTS.items()}
+def build(out: Path) -> dict:
+    """Each variant's header beside copies of both sources, all built at
+    once: (variant, source) -> library."""
+    header = (_build.CSRC / "attention_wgmma.cuh").read_text()
+    if header.count(SLOTS) != 1:
+        raise RuntimeError("the ring's slot count is not where it was")
     procs = {}
-    for name, edits in variants.items():
-        header = (_build.CSRC / "attention_wgmma.cuh").read_text()
-        for old, new in edits:
-            if header.count(old) != 1:
-                raise RuntimeError(f"{old!r} is not where it was")
-            header = header.replace(old, new)
+    for name, line in VARIANTS.items():
         d = out / name
         d.mkdir()
-        (d / "attention_wgmma.cuh").write_text(header)
+        (d / "attention_wgmma.cuh").write_text(header.replace(SLOTS, line))
         for src in SOURCES:
             shutil.copy(_build.CSRC / f"{src}.cu", d / f"{src}.cu")
             lib = d / f"lib{src}.so"
@@ -68,7 +63,6 @@ def build(out: Path, variants=None) -> dict:
         log = proc.communicate()[0].decode()
         if proc.returncode:
             raise RuntimeError(f"{key} did not build:\n{log[-3000:]}")
-        lib.with_suffix(".log").write_text(log)  # ptxas -v
         libs[key] = lib
     return libs
 
