@@ -1410,15 +1410,23 @@ def test_dsplit_backward_limit_rejects_a_short_depth_or_offset(
 
 
 def _device_kernels(call):
-    """The device kernels one ``call()`` ran, by name (profiler)."""
-    torch.cuda.synchronize()
+    """The device kernels one ``call()`` ran, by name (profiler). A window
+    that records no device activity at all (seen at random late in a full
+    run of this file) is tried again, three windows in all, as
+    chip_smoke.py's check_ran does; a window that records other kernels
+    is returned as it is."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        call()
+    for _ in range(3):
         torch.cuda.synchronize()
-    return {e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+        with torch.profiler.profile(activities=acts) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            break
+    return names
 
 
 def _ran(kernel: str, names) -> bool:
@@ -1456,8 +1464,9 @@ def test_forward_dispatch_takes_the_wgmma_list_kernel(card, family, dtype,
         fwd, name = bsa_fwd, BSA_NAMES[0]
     fwd(q, k, v, *args)  # builds and loads the kernels first
     _build.reset_launches()
-    ran = _device_kernels(lambda: fwd(q, k, v, *args))
+    fwd(q, k, v, *args)
     assert _build.launches() == {name: 1}
+    ran = _device_kernels(lambda: fwd(q, k, v, *args))
     bf16 = dtype == torch.bfloat16
     if bf16 and d > 256:
         want = "bsa_fwd_dsplit_wgmma_kernel"
@@ -1529,8 +1538,9 @@ def test_backward_dispatch_takes_the_wgmma_list_kernels(card, family, dtype,
     for call, name, kernel in zip((dq, dkv), names[1:], want):
         call()  # builds and loads the kernels first
         _build.reset_launches()
-        ran = _device_kernels(call)
+        call()
         assert _build.launches() == {name: 1}
+        ran = _device_kernels(call)
         assert _ran(kernel, ran), (kernel, ran)
         got, ref = call(), call(impl="torch")
         if torch.is_tensor(got):
