@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
 card.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py [--parent DIR] [--only wide]
 
 Phases, each printing one JSON line (``{"phase": ...}``):
 
@@ -93,21 +93,26 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    copy; fp32 out and q/k/v gradients agree with the dense masked
    composition, bf16 with the plain versions on the same route.
    ``wide`` — the six flash and block-sparse entry points at padded head
-   dims 192, 256, 320 and 512 (bf16) and 256 (fp32), and flash's at bf16
-   256 and 512 with dropout, against their plain versions: the kernel
-   each case ran (the profiler's name: at bf16 192 and 256 the list
-   kernels of ``attention_wgmma.cuh``, ``bsa_fwd_wgmma_kernel``,
-   ``bsa_dq_wgmma_kernel`` and ``bsa_dkv_split_wgmma_kernel``, in both
-   families; at bf16 320 and 512 that header's D-split kernels,
-   ``bsa_fwd_dsplit_wgmma_kernel``, ``bsa_dq_dsplit_wgmma_kernel`` and
-   ``bsa_dkv_dsplit_wgmma_kernel``; the wide kernels in fp32), errors,
-   times, bounds, ptxas; ``wide_library``: torch's
-   scaled_dot_product_attention on the bf16 D 256 and D 512 inputs
-   (causal for flash, the expanded mask for block-sparse), forward and
-   backward (dq, dk and dv in one call), each with the backend it ran,
-   as the yardstick. With ``--parent DIR``, ``wide_parent`` times that
-   tree's bf16 entry points at D 192, 256 and 512 beside this tree's
-   (parent, this, this, parent).
+   dims 192, 256, 320 and 512 (bf16) and 256 and 512 (fp32), and flash's
+   at bf16 256 and 512 and fp32 256 with dropout, against their plain
+   versions: the kernel each case ran (the profiler's name: at bf16 192
+   and 256 the list kernels of ``attention_wgmma.cuh``,
+   ``bsa_fwd_wgmma_kernel``, ``bsa_dq_wgmma_kernel`` and
+   ``bsa_dkv_split_wgmma_kernel``, in both families; at bf16 320 and 512
+   that header's D-split kernels, ``bsa_fwd_dsplit_wgmma_kernel``,
+   ``bsa_dq_dsplit_wgmma_kernel`` and ``bsa_dkv_dsplit_wgmma_kernel``; in
+   fp32 ``attention_tf32.cuh``'s ``bsa_fwd_tf32_kernel`` and
+   ``bsa_dkv_tf32_kernel`` and ``wide_dq_kernel``), errors, times,
+   bounds (and ``tc_bound_ms`` for the 3xTF32 kernels), ptxas
+   (``wide_ptxas``: each 3xTF32 instantiation's registers and spills);
+   ``wide_library``: torch's scaled_dot_product_attention on the bf16
+   and fp32 D 256 and D 512 inputs (causal for flash, the expanded mask
+   for block-sparse), forward and backward (dq, dk and dv in one call),
+   each with the backend it ran, in fp32 with each backend's error
+   against the plain versions, as the yardstick. With ``--parent DIR``,
+   ``wide_parent`` times that tree's entry points at bf16 D 192, 256 and
+   512 and fp32 D 256 and 512 beside this tree's (parent, this, this,
+   parent). ``--only wide`` builds and runs this phase alone.
 11. ``layer_norm`` — the LayerNorm kernel against its plain version at
    [8192, 2048] and [16, 2048], fp32 and bf16, with
    ``torch.nn.functional.layer_norm`` as the yardstick; then
@@ -144,13 +149,14 @@ SEED = 0
 TIME_REPS = 25
 
 # Published peaks per card: (HBM bytes/s, fp32 non-tensor FLOP/s, bf16
-# dense tensor FLOP/s), from NVIDIA's data sheets. The most specific name
-# fragment that matches the card's name wins.
+# dense tensor FLOP/s, TF32 dense tensor FLOP/s), from NVIDIA's data
+# sheets. The most specific name fragment that matches the card's name
+# wins.
 _PEAKS = (
-    ("H100 PCIe", 2.0e12, 51e12, 756e12),
-    ("H100 NVL", 3.9e12, 60e12, 835e12),
-    ("H200", 4.8e12, 67e12, 989e12),
-    ("H100", 3.35e12, 67e12, 989e12),  # H100 SXM
+    ("H100 PCIe", 2.0e12, 51e12, 756e12, 378e12),
+    ("H100 NVL", 3.9e12, 60e12, 835e12, 418e12),
+    ("H200", 4.8e12, 67e12, 989e12, 495e12),
+    ("H100", 3.35e12, 67e12, 989e12, 495e12),  # H100 SXM
 )
 
 
@@ -159,10 +165,11 @@ def emit(phase: str, **fields) -> None:
 
 
 def card_peaks(name: str):
-    for frag, hbm, fp32, bf16 in _PEAKS:
+    for frag, hbm, fp32, bf16, tf32 in _PEAKS:
         if frag in name:
             return {"name": frag, "hbm_bytes_per_s": hbm,
-                    "fp32_flops": fp32, "bf16_flops": bf16}
+                    "fp32_flops": fp32, "bf16_flops": bf16,
+                    "tf32_flops": tf32}
     raise RuntimeError(f"no published peaks recorded for {name!r}")
 
 
@@ -1525,7 +1532,7 @@ def sparse_parent(parent, calls, mask, tensors, causal, scale, timer):
 # flash's dropout rate; block-sparse attention has no dropout and skips
 # a case with one). Flash at BH 16, S 1024, causal; block-sparse at BH 8,
 # S 2048 on BigBird's pattern at 128-token blocks. Smaller than the main
-# shapes: fp32 runs on the FMA units and repeats the scores for each
+# shapes: fp32 dQ runs on the FMA units and repeats the scores for each
 # 64-column output slice.
 WIDE_CASES = ((torch.bfloat16, 192, ("fwd", "dq", "dkv"), 0.0),
               (torch.bfloat16, 256, ("fwd", "dq", "dkv"), 0.0),
@@ -1533,7 +1540,9 @@ WIDE_CASES = ((torch.bfloat16, 192, ("fwd", "dq", "dkv"), 0.0),
               (torch.bfloat16, 320, ("fwd", "dq", "dkv"), 0.0),
               (torch.bfloat16, 512, ("fwd", "dq", "dkv"), 0.0),
               (torch.bfloat16, 512, ("fwd", "dq", "dkv"), 0.1),
-              (torch.float32, 256, ("fwd", "dq", "dkv"), 0.0))
+              (torch.float32, 256, ("fwd", "dq", "dkv"), 0.0),
+              (torch.float32, 256, ("fwd", "dq", "dkv"), 0.1),
+              (torch.float32, 512, ("fwd", "dq", "dkv"), 0.0))
 WIDE_SHAPE = dict(flash_bh=16, flash_seq=1024, sparse_bh=8, sparse_seq=2048)
 
 
@@ -1549,13 +1558,46 @@ WIDE_DSPLIT_KERNEL_OF = {"fwd": "bsa_fwd_dsplit_wgmma_kernel",
                          "dkv": "bsa_dkv_dsplit_wgmma_kernel"}
 
 
+# the kernel each entry point launches in fp32 at padded head dims
+# 192..512, both families: the 3xTF32 forward and dK/dV of
+# attention_tf32.cuh, the FMA dQ of wide_attention.cuh
+WIDE_FP32_KERNEL_OF = {"fwd": "bsa_fwd_tf32_kernel",
+                       "dq": "wide_dq_kernel",
+                       "dkv": "bsa_dkv_tf32_kernel"}
+
+
 def wide_kernel_of(kind: str, dtype, d: int) -> str:
     """The kernel an entry point launches at padded head dim d > 128."""
     if dtype == torch.bfloat16 and d <= 256:
         return WIDE_LIST_KERNEL_OF[kind]
     if dtype == torch.bfloat16:
         return WIDE_DSPLIT_KERNEL_OF[kind]
-    return f"wide_{kind}_kernel"
+    return WIDE_FP32_KERNEL_OF[kind]
+
+
+def ptxas_instances(report: str, kernel: str):
+    """Registers and spill bytes of every instantiation of ``kernel`` in
+    a ``_build.ptxas_report``, by its template arguments as mangled
+    (``Li256ELb1E``: head dim 256, the first flag true)."""
+    found, cur = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            at = name.find(kernel + "I")
+            cur = (name[at + len(kernel) + 1:].split("EEv")[0]
+                   if at >= 0 else None)
+            continue
+        if cur is None:
+            continue
+        if "spill stores" in line:
+            nums = [int(x) for x in line.split() if x.isdigit()]
+            found.setdefault(cur, {}).update(spill_store_bytes=nums[1],
+                                             spill_load_bytes=nums[2])
+        elif "Used" in line and "registers" in line:
+            found.setdefault(cur, {})["registers"] = int(
+                line.split("Used")[1].split()[0])
+            cur = None
+    return found
 
 
 def phase_wide(device, peaks, timer, parent=None):
@@ -1567,17 +1609,29 @@ def phase_wide(device, peaks, timer, parent=None):
     D 256 and 512 inputs, forward (the forward's ``library_ms``) and
     backward under each backend (``wide_library``; the fastest beside dQ
     and dK/dV as ``sdpa_backward_ms``, whose ``library_ms`` is null: no
-    one call computes either alone).
-    With ``parent``, that tree's bf16 entry points at D 192, 256 and 512
-    beside this tree's (``wide_parent``)."""
+    one call computes either alone); the same on the fp32 D 256 and 512
+    inputs, each backend with its max abs error against the plain
+    forward and gradients, the fastest forward and backward taken over
+    the backends within the fp32 limits (matmuls held to fp32:
+    ``allow_tf32`` off). The fp32 forward and dK/dV past 128, which run
+    on TF32 tensor cores in three products, also get ``tc_bound_ms``:
+    those three products' operations over the card's TF32 peak.
+    With ``parent``, that tree's entry points at bf16 D 192, 256 and 512
+    and fp32 D 256 and 512 beside this tree's (``wide_parent``)."""
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import block_sparse_attention as bsa
     from paddle_tpu_torch.ops import flash_attention as fa
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     sh = WIDE_SHAPE
     reports = {fam: _build.ptxas_report(src) for fam, src in
                (("flash", "flash_attention"),
                 ("sparse", "block_sparse_attention"))}
+    emit("wide_ptxas", **{
+        f"{fam}_{kernel}": ptxas_instances(reports[fam], kernel)
+        for fam in reports
+        for kernel in (WIDE_FP32_KERNEL_OF["fwd"],
+                       WIDE_FP32_KERNEL_OF["dkv"])})
     mask = bigbird_mask(sh["sparse_seq"] // 128)
     g = torch.Generator(device=device).manual_seed(SEED + 10)
     theirs = None
@@ -1646,17 +1700,28 @@ def phase_wide(device, peaks, timer, parent=None):
                 # backward computes dq, dk and dv in one call, no one
                 # PyTorch call computes dQ or dK/dV alone: the fastest
                 # backend's backward is kept beside them as a yardstick
+                # (in fp32 the fastest within the fp32 limits)
                 library, yardstick = None, {}
-                if (dtype == torch.bfloat16 and d in (256, 512)
-                        and not dropout):
+                if d in (256, 512) and not dropout:
                     if kind == "fwd":
+                        plain = None
+                        if dtype == torch.float32:
+                            plain = (want[0], calls["dq"]("torch"),
+                                     *calls["dkv"]("torch"))
                         lib = wide_sdpa(q, k, v, do, args[0] if fam ==
                                         "sparse" else None, timer,
-                                        backward=True)
+                                        backward=True, plain=plain)
                         emit("wide_library", family=fam, case=tag, **lib)
-                        library = lib["sdpa_forward_ms"]
+                        library = (lib["sdpa_forward_ms"] if plain is None
+                                   else fastest_sdpa(lib, "forward")[
+                                       "sdpa_forward_ms"])
+                        if plain is not None:
+                            yardstick = fastest_sdpa(lib, "forward")
                     else:
-                        yardstick = fastest_sdpa_backward(lib)
+                        yardstick = fastest_sdpa(lib, "backward")
+                if kernel.endswith("_tf32_kernel"):
+                    yardstick["tc_bound_ms"] = (
+                        3 * work[1] / peaks["tf32_flops"] * 1e3)
                 res = dict(family=fam, kind=kind, case=tag, kernel=kernel,
                            kernel_seen=seen, launches=launches, ptxas=ptxas,
                            max_abs_err=max(e for e, _ in errs),
@@ -1669,8 +1734,9 @@ def phase_wide(device, peaks, timer, parent=None):
                            **bound_of(*work, dtype, peaks))
                 emit("wide", name=f"{fam}_{kind}", **res)
                 results[(fam, kind, tag)] = res
-            if (theirs is not None and dtype == torch.bfloat16
-                    and d in (192, 256, 512) and not dropout):
+            if (theirs is not None and not dropout
+                    and d in ((192, 256, 512) if dtype == torch.bfloat16
+                              else (256, 512))):
                 wide_parent(theirs[fam], fam, tag, calls,
                             (q, k, v, do, lse, delta), args, timer, kinds)
             del q, k, v, do, out, lse, delta
@@ -1678,17 +1744,20 @@ def phase_wide(device, peaks, timer, parent=None):
     return results
 
 
-def wide_sdpa(q, k, v, do, spec, timer, backward: bool):
-    """torch's scaled_dot_product_attention on the same bf16 [BH, S, D]
-    inputs (as [1, BH, S, D]): causal for flash (``spec`` None), with the
-    block mask expanded to elements for block-sparse. Its forward, and
-    with ``backward`` its backward (dq, dk and dv in one call), each the
+def wide_sdpa(q, k, v, do, spec, timer, backward: bool, plain=None):
+    """torch's scaled_dot_product_attention on the same [BH, S, D] inputs
+    (as [1, BH, S, D]): causal for flash (``spec`` None), with the block
+    mask expanded to elements for block-sparse. Its forward, and with
+    ``backward`` its backward (dq, dk and dv in one call), each the
     median of TIME_REPS launches with the L2 flushed, as PyTorch picks
     the backend, and the same under each backend alone
     (``torch.nn.attention.sdpa_kernel``) or the error by which it refuses
     the inputs: the default's time names the backend it ran, where the
-    profiler records no device window. Timed here only; the port never
-    calls it."""
+    profiler records no device window. With ``plain`` (the port's plain
+    out, dq, dk, dv on these inputs), each backend's max abs error
+    against them, forward and gradients, and whether both are within the
+    limits of the inputs' dtype (``within_limits``). Timed here only; the
+    port never calls it."""
     import torch.nn.functional as TF
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -1705,10 +1774,18 @@ def wide_sdpa(q, k, v, do, spec, timer, backward: bool):
         out = fwd()
         got = dict(sdpa_forward_ms=timer.median_ms(fwd))
         if backward:
-            got["sdpa_backward_ms"] = timer.median_ms(
-                lambda: torch.autograd.grad(out, (qs, ks, vs),
-                                            do.unsqueeze(0),
-                                            retain_graph=True))
+            bwd = lambda: torch.autograd.grad(out, (qs, ks, vs),
+                                              do.unsqueeze(0),
+                                              retain_graph=True)
+            got["sdpa_backward_ms"] = timer.median_ms(bwd)
+        if plain is not None:
+            errs = [(a.squeeze(0).float() - b.float()).abs().max().item()
+                    for a, b in zip((out, *bwd()), plain)]
+            lims = [TOL[q.dtype] * max(1.0, b.float().abs().max().item())
+                    for b in plain]
+            got.update(forward_err=errs[0], backward_err=max(errs[1:]),
+                       within_limits=all(e <= lim
+                                         for e, lim in zip(errs, lims)))
         return got
 
     res = times()
@@ -1725,18 +1802,20 @@ def wide_sdpa(q, k, v, do, spec, timer, backward: bool):
     return res
 
 
-def fastest_sdpa_backward(lib):
-    """The least of ``wide_sdpa``'s backward times over the backends that
-    took the inputs, and the backend's name."""
-    runs = {name: got["sdpa_backward_ms"]
-            for name, got in lib["backends"].items() if isinstance(got, dict)}
+def fastest_sdpa(lib, which: str):
+    """The least of ``wide_sdpa``'s ``which`` ("forward" or "backward")
+    times over the backends that took the inputs (and, where their errors
+    were measured, kept within the limits), and the backend's name."""
+    runs = {name: got[f"sdpa_{which}_ms"]
+            for name, got in lib["backends"].items()
+            if isinstance(got, dict) and got.get("within_limits", True)}
     name = min(runs, key=runs.get)
-    return dict(sdpa_backward_ms=runs[name], sdpa_backward_backend=name)
+    return {f"sdpa_{which}_ms": runs[name], f"sdpa_{which}_backend": name}
 
 
 def wide_parent(mod, fam, tag, calls, tensors, args, timer,
                 kinds=("fwd", "dq", "dkv")):
-    """The parent tree's bf16 entry points ``kinds`` of forward, dQ and
+    """The parent tree's entry points ``kinds`` of forward, dQ and
     dK/dV (``mod``, its flash or block-sparse module) and this tree's on
     the same inputs, each held against this tree's plain version, then
     timed in the order parent, this, this, parent."""
@@ -2178,6 +2257,9 @@ def main() -> int:
                          "commit's git archive): the sparse and wide phases "
                          "time its bf16 block-sparse kernels and wide "
                          "forwards beside this tree's")
+    ap.add_argument("--only", choices=("wide",), default=None,
+                    help="build, then run this phase alone; prints no "
+                         "kernels line and no last line")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2203,6 +2285,9 @@ def main() -> int:
                 for src in _build.KERNEL_SOURCES})
 
     timer = Timer(device)
+    if opts.only == "wide":
+        phase_wide(device, peaks, timer, opts.parent)
+        return 0
     kernel = phase_kernel(device, peaks, timer)
     phase_kernel_geometry(device, peaks, timer)
     decode, decode_launches = phase_decode_batch(
@@ -2303,6 +2388,19 @@ def main() -> int:
                 f"{entry}_d512", res["kernel"],
                 "paddle_tpu_torch/ops/csrc/attention_wgmma.cuh",
                 f"{ref}:{line}", count, res, res["library_ms"]))
+    # the 3xTF32 forward and dK/dV at padded D 256 and 512 (the wide
+    # phase's fp32 cases)
+    for fam, ref, lines in (("flash", fa_ref, (("fwd", 162), ("dkv", 316))),
+                            ("sparse", bsa_ref, (("fwd", 92),
+                                                 ("dkv", 216)))):
+        for kind, line in lines:
+            for d in (256, 512):
+                res = wide[(fam, kind, f"float32_d{d}")]
+                (entry, count), = res["launches"].items()
+                entries.append(kernel_entry(
+                    f"{entry}_fp32_d{d}", res["kernel"],
+                    "paddle_tpu_torch/ops/csrc/attention_tf32.cuh",
+                    f"{ref}:{line}", count, res, res["library_ms"]))
     res = ln["8192x2048_bfloat16"]
     entries.append(kernel_entry(
         "layer_norm_fwd", "ln_fwd_kernel",

@@ -13,10 +13,11 @@
 // a block-sparse kernel's compacted list, or the dense list a flash
 // kernel walks (dense_list). Each step comes in two halves: the scores
 // over the head dim, and the update given the scores (fwd_update,
-// dq_update, dkv_update), which the wide-head-dim kernels
-// (wide_attention.cuh) call on scores they sum over 64-column chunks.
-// These are the fp32 steps, on the FMA units; the bf16 steps on wgmma are
-// in attention_wgmma.cuh.
+// dq_update, dkv_update); the fp32 dQ kernel past D 128
+// (wide_attention.cuh) calls dq_update on scores it sums over 64-column
+// chunks. These are the fp32 steps, on the FMA units; the bf16 steps on
+// wgmma are in attention_wgmma.cuh, the fp32 forward and dK/dV past D 128
+// on TF32 tensor cores in attention_tf32.cuh.
 //
 // Masked scores are -inf. The running max is -inf-safe: while every
 // column a row has seen is masked, its max stays -inf and the step

@@ -19,7 +19,9 @@
 //                           bsa_dq_dsplit_wgmma_kernel,
 //                           bsa_dkv_dsplit_wgmma_kernel (attention_wgmma.cuh,
 //                           D split across warpgroups or blocks)
-//   fp32 at 192..512        the wide kernels of wide_attention.cuh
+//   fp32 at 192..512        bsa_fwd_tf32_kernel, bsa_dkv_tf32_kernel
+//                           (attention_tf32.cuh, 3xTF32 on the tensor
+//                           cores), wide_dq_kernel (wide_attention.cuh)
 // The TPU grid is (BH, n blocks, list slot): each step's BlockSpec index
 // map reads the list, so inactive blocks are never copied from HBM, and
 // the sums ride in VMEM scratch from slot to slot. Here one thread block
@@ -55,7 +57,7 @@
 // (the flash kernels' design: dQ and dK/dV below, the forward in
 // attention_wgmma.cuh); fp32 on the FMA units.
 
-#include "attention_wgmma.cuh"
+#include "attention_tf32.cuh"
 #include "wide_attention.cuh"
 
 namespace {
@@ -457,16 +459,16 @@ BlockList make_list(const void* idx, const void* count, const void* order,
 
 }  // namespace
 
-// Dispatch on (dtype, padded head dim): dtype 0 = float32 runs the FMA
-// kernels (FP32), 1 = bfloat16 the tensor-core kernels (BF16), at
-// head_dim 64 or 128; fp32 at head_dim 192..512 (multiples of 64) runs the
-// wide kernels (WIDE, wide_attention.cuh). bf16 past 128 is picked in each
-// entry point before this dispatch: the list kernels of
-// attention_wgmma.cuh at 192 and 256, its D-split kernels at 320..512. The
-// arguments are the kernels' up to sq, sk; causal, scale and the stream
-// follow (with head_dim before them for WIDE). Everything else is refused
-// with cudaErrorInvalidValue before any launch.
-#define BSA_DISPATCH(FP32, BF16, WIDE, ...)                                 \
+// Dispatch on (dtype, padded head dim) at head_dim 64 or 128: dtype 0 =
+// float32 runs the FMA kernels (FP32), 1 = bfloat16 the tensor-core
+// kernels (BF16). Past 128 (192..512, multiples of 64) each entry point
+// picks its kernel before this dispatch: in bf16 the list kernels of
+// attention_wgmma.cuh at 192 and 256, its D-split kernels at 320..512; in
+// fp32 the 3xTF32 forward and dK/dV of attention_tf32.cuh and
+// wide_dq_kernel (wide_attention.cuh). The arguments are the kernels' up
+// to sq, sk; causal, scale and the stream follow. Everything else is
+// refused with cudaErrorInvalidValue before any launch.
+#define BSA_DISPATCH(FP32, BF16, ...)                                       \
   do {                                                                      \
     if (dtype == 0 && head_dim == 64)                                       \
       return (int)FP32<float, 64>(__VA_ARGS__, causal, scale, st);          \
@@ -476,9 +478,6 @@ BlockList make_list(const void* idx, const void* count, const void* order,
       return (int)BF16<64>(__VA_ARGS__, causal, scale, st);                 \
     if (dtype == 1 && head_dim == 128)                                      \
       return (int)BF16<128>(__VA_ARGS__, causal, scale, st);                \
-    if (wide_head_dim(head_dim) && dtype == 0)                              \
-      return (int)WIDE(__VA_ARGS__, head_dim, causal, scale, Dropout{},     \
-                       st);                                                 \
     return (int)cudaErrorInvalidValue;                                      \
   } while (0)
 
@@ -509,8 +508,12 @@ int bsa_fwd_launch(const void* q, const void* k, const void* v, void* out,
   if (dtype == 1 && head_dim > 256 && wide_head_dim(head_dim))
     return (int)launch_fwd_dsplit_wgmma(head_dim, q, k, v, out, lse, L, bh,
                                         sq, sk, causal, scale, Dropout{}, st);
-  BSA_DISPATCH(launch_fwd, launch_fwd_wgmma, launch_wide_fwd, q, k, v, out,
-               lse, L, bh, sq, sk);
+  // fp32 at 192..512: 3xTF32 on the tensor cores
+  if (dtype == 0 && wide_head_dim(head_dim))
+    return (int)launch_fwd_tf32<false>(head_dim, q, k, v, out, lse, L, bh, sq,
+                                       sk, causal, scale, Dropout{}, st);
+  BSA_DISPATCH(launch_fwd, launch_fwd_wgmma, q, k, v, out, lse, L, bh, sq,
+               sk);
 }
 
 int bsa_dq_launch(const void* q, const void* k, const void* v,
@@ -535,8 +538,12 @@ int bsa_dq_launch(const void* q, const void* k, const void* v,
     return (int)launch_dq_dsplit_wgmma<false>(head_dim, q, k, v, dout, lse,
                                               delta, dq, L, bh, sq, sk,
                                               causal, scale, Dropout{}, st);
-  BSA_DISPATCH(launch_dq, launch_dq_wgmma, launch_wide_dq, q, k, v, dout,
-               lse, delta, dq, L, bh, sq, sk);
+  // fp32 at 192..512: the FMA kernel, a 64-column slice a block
+  if (dtype == 0 && wide_head_dim(head_dim))
+    return (int)launch_wide_dq(q, k, v, dout, lse, delta, dq, L, bh, sq, sk,
+                               head_dim, causal, scale, Dropout{}, st);
+  BSA_DISPATCH(launch_dq, launch_dq_wgmma, q, k, v, dout, lse, delta, dq, L,
+               bh, sq, sk);
 }
 
 int bsa_dkv_launch(const void* q, const void* k, const void* v,
@@ -565,8 +572,13 @@ int bsa_dkv_launch(const void* q, const void* k, const void* v,
     return (int)launch_dkv_dsplit_wgmma<false>(
         head_dim, q, k, v, dout, lse, delta, dk, dv, L, bh, sq, sk, causal,
         scale, Dropout{}, st);
-  BSA_DISPATCH(launch_dkv, launch_dkv_wgmma, launch_wide_dkv, q, k, v, dout,
-               lse, delta, dk, dv, L, bh, sq, sk);
+  // fp32 at 192..512: 3xTF32 on the tensor cores, a role a warp
+  if (dtype == 0 && wide_head_dim(head_dim))
+    return (int)launch_dkv_tf32<false>(head_dim, q, k, v, dout, lse, delta,
+                                       dk, dv, L, bh, sq, sk, causal, scale,
+                                       Dropout{}, st);
+  BSA_DISPATCH(launch_dkv, launch_dkv_wgmma, q, k, v, dout, lse, delta, dk,
+               dv, L, bh, sq, sk);
 }
 
 const char* bsa_error_string(int code) {

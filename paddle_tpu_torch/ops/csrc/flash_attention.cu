@@ -2,8 +2,8 @@
 // dK/dV, on [BH, S, D] tensors (D padded to a multiple of 64 up to 512 by
 // the wrapper; bf16 at D 192 and 256 runs the list kernels of
 // attention_wgmma.cuh over a dense walk, bf16 at 320..512 that header's
-// D-split kernels, and fp32 past 128 the wide kernels of
-// wide_attention.cuh).
+// D-split kernels, fp32 past 128 the 3xTF32 forward and dK/dV of
+// attention_tf32.cuh and the FMA dQ of wide_attention.cuh).
 //
 // Replaces the three Pallas TPU kernels of
 // paddle_tpu/ops/pallas/flash_attention.py:
@@ -14,8 +14,10 @@
 // attention_wgmma.cuh over a dense walk: bsa_fwd_wgmma_kernel,
 // bsa_dq_wgmma_kernel and bsa_dkv_split_wgmma_kernel; at 320..512 that
 // header's bsa_fwd_dsplit_wgmma_kernel, bsa_dq_dsplit_wgmma_kernel and
-// bsa_dkv_dsplit_wgmma_kernel (D split across warpgroups or blocks).
-// Each computes what its TPU kernel computes; none is carried over block
+// bsa_dkv_dsplit_wgmma_kernel (D split across warpgroups or blocks); in
+// fp32 past 128, attention_tf32.cuh's bsa_fwd_tf32_kernel and
+// bsa_dkv_tf32_kernel (3xTF32 on mma.sync) and wide_attention.cuh's
+// wide_dq_kernel. Each computes what its TPU kernel computes; none is carried over block
 // by block. The TPU grids walk the inner tile loop in order and carry
 // (m, l, acc) or the dq / dk,dv sums in VMEM scratch across grid steps; on
 // the GPU that loop runs inside one thread block, and the sums stay in the
@@ -69,7 +71,7 @@
 // attention_tiles.cuh, the bf16 wgmma tile steps in attention_wgmma.cuh,
 // both shared with the block-sparse kernels.
 
-#include "attention_wgmma.cuh"
+#include "attention_tf32.cuh"
 #include "wide_attention.cuh"
 
 namespace {
@@ -729,16 +731,17 @@ Dropout make_dropout(unsigned seed, unsigned threshold, float keep_div,
 
 }  // namespace
 
-// Dispatch on (dtype, padded head dim): dtype 0 = float32 runs the FMA
-// kernels (FP32), 1 = bfloat16 the tensor-core kernels (BF16), at head_dim
-// 64 or 128; fp32 at head_dim 192..512 (multiples of 64) runs the wide
-// kernels (WIDE) over a dense walk. bf16 past 128 is picked in each entry
-// point before this dispatch: the list kernels of attention_wgmma.cuh at
-// 192 and 256, its D-split kernels at 320..512
-// (bsa_fwd_dsplit_wgmma_kernel, bsa_dq_dsplit_wgmma_kernel,
-// bsa_dkv_dsplit_wgmma_kernel). Everything else is refused with
-// cudaErrorInvalidValue before any launch.
-#define FA_DISPATCH(FP32, BF16, WIDE, WALK, ...)                           \
+// Dispatch on (dtype, padded head dim) at head_dim 64 or 128: dtype 0 =
+// float32 runs the FMA kernels (FP32), 1 = bfloat16 the tensor-core
+// kernels (BF16). Past 128 (192..512, multiples of 64) each entry point
+// picks its kernel before this dispatch, over a dense walk: in bf16 the
+// list kernels of attention_wgmma.cuh at 192 and 256, its D-split kernels
+// at 320..512 (bsa_fwd_dsplit_wgmma_kernel, bsa_dq_dsplit_wgmma_kernel,
+// bsa_dkv_dsplit_wgmma_kernel); in fp32 the 3xTF32 forward and dK/dV of
+// attention_tf32.cuh (bsa_fwd_tf32_kernel, bsa_dkv_tf32_kernel) and
+// wide_dq_kernel. Everything else is refused with cudaErrorInvalidValue
+// before any launch.
+#define FA_DISPATCH(FP32, BF16, ...)                                       \
   do {                                                                     \
     if (dtype == 0 && head_dim == 64)                                      \
       return (int)FP32<float, 64>(__VA_ARGS__);                            \
@@ -746,8 +749,6 @@ Dropout make_dropout(unsigned seed, unsigned threshold, float keep_div,
       return (int)FP32<float, 128>(__VA_ARGS__);                           \
     if (dtype == 1 && head_dim == 64) return (int)BF16<64>(__VA_ARGS__);   \
     if (dtype == 1 && head_dim == 128) return (int)BF16<128>(__VA_ARGS__); \
-    if (wide_head_dim(head_dim) && dtype == 0)                             \
-      return (int)WIDE WALK;                                               \
     return (int)cudaErrorInvalidValue;                                     \
   } while (0)
 
@@ -775,10 +776,13 @@ int fa_fwd_launch(const void* q, const void* k, const void* v, void* out,
     return (int)launch_fwd_dsplit_wgmma(head_dim, q, k, v, out, lse,
                                         dense_list(sk), bh, sq, sk, causal,
                                         scale, drop, st);
-  FA_DISPATCH(launch_fwd, launch_fwd_wgmma, launch_wide_fwd,
-              (q, k, v, out, lse, dense_list(sk), bh, sq, sk, head_dim,
-               causal, scale, drop, st),
-              q, k, v, out, lse, bh, sq, sk, causal, scale, drop, st);
+  // fp32 at 192..512: 3xTF32 on the tensor cores
+  if (dtype == 0 && wide_head_dim(head_dim))
+    return (int)launch_fwd_tf32<true>(head_dim, q, k, v, out, lse,
+                                      dense_list(sk), bh, sq, sk, causal,
+                                      scale, drop, st);
+  FA_DISPATCH(launch_fwd, launch_fwd_wgmma, q, k, v, out, lse, bh, sq, sk,
+              causal, scale, drop, st);
 }
 
 int fa_dq_launch(const void* q, const void* k, const void* v,
@@ -805,11 +809,12 @@ int fa_dq_launch(const void* q, const void* k, const void* v,
     return (int)launch_dq_dsplit_wgmma<true>(head_dim, q, k, v, dout, lse,
                                              delta, dq, dense_list(sk), bh,
                                              sq, sk, causal, scale, drop, st);
-  FA_DISPATCH(launch_dq, launch_dq_wgmma, launch_wide_dq,
-              (q, k, v, dout, lse, delta, dq, dense_list(sk), bh, sq, sk,
-               head_dim, causal, scale, drop, st),
-              q, k, v, dout, lse, delta, dq, bh, sq, sk, causal, scale, drop,
-              st);
+  // fp32 at 192..512: the FMA kernel, a 64-column slice a block
+  if (dtype == 0 && wide_head_dim(head_dim))
+    return (int)launch_wide_dq(q, k, v, dout, lse, delta, dq, dense_list(sk),
+                               bh, sq, sk, head_dim, causal, scale, drop, st);
+  FA_DISPATCH(launch_dq, launch_dq_wgmma, q, k, v, dout, lse, delta, dq, bh,
+              sq, sk, causal, scale, drop, st);
 }
 
 int fa_dkv_launch(const void* q, const void* k, const void* v,
@@ -836,11 +841,13 @@ int fa_dkv_launch(const void* q, const void* k, const void* v,
     return (int)launch_dkv_dsplit_wgmma<true>(
         head_dim, q, k, v, dout, lse, delta, dk, dv, dense_list(sq), bh, sq,
         sk, causal, scale, drop, st);
-  FA_DISPATCH(launch_dkv, launch_dkv_wgmma, launch_wide_dkv,
-              (q, k, v, dout, lse, delta, dk, dv, dense_list(sq), bh, sq, sk,
-               head_dim, causal, scale, drop, st),
-              q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, causal, scale,
-              drop, st);
+  // fp32 at 192..512: 3xTF32 on the tensor cores, a role a warp
+  if (dtype == 0 && wide_head_dim(head_dim))
+    return (int)launch_dkv_tf32<true>(head_dim, q, k, v, dout, lse, delta, dk,
+                                      dv, dense_list(sq), bh, sq, sk, causal,
+                                      scale, drop, st);
+  FA_DISPATCH(launch_dkv, launch_dkv_wgmma, q, k, v, dout, lse, delta, dk,
+              dv, bh, sq, sk, causal, scale, drop, st);
 }
 
 const char* fa_error_string(int code) {

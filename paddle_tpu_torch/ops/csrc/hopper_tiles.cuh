@@ -384,25 +384,43 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A [bh, rows, d] bf16 tensor as a 3-D tensor map read in boxes of 64
-// columns x box_rows rows with 128-byte swizzle. Rows past `rows` read as
-// zeros (a box never runs into the next batch-head).
-inline cudaError_t bf16_map(CUtensorMap* map, const void* ptr, int bh,
-                            int rows, int d, int box_rows) {
+// A [bh, rows, d] tensor of `elem`-byte elements as a 3-D tensor map
+// read in boxes of 128 bytes of columns x box_rows rows with 128-byte
+// swizzle. Rows past `rows` read as zeros (a box never runs into the next
+// batch-head).
+inline cudaError_t tiled_map(CUtensorMap* map, CUtensorMapDataType type,
+                             int elem, const void* ptr, int bh, int rows,
+                             int d, int box_rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
-                                 (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * elem,
+                                 (cuuint64_t)rows * d * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows,
+                             1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, 3, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// bf16: boxes of 64 columns, the layout contract above
+inline cudaError_t bf16_map(CUtensorMap* map, const void* ptr, int bh,
+                            int rows, int d, int box_rows) {
+  return tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, bh, rows,
+                   d, box_rows);
+}
+
+// fp32: boxes of 32 columns, laid out as the contract lays bf16 out (D / 32
+// column blocks of R rows x 128 bytes, 16-byte chunk c of row r at
+// c ^ (r % 8))
+inline cudaError_t f32_map(CUtensorMap* map, const void* ptr, int bh,
+                           int rows, int d, int box_rows) {
+  return tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, bh, rows, d,
+                   box_rows);
 }
 
 }  // namespace

@@ -47,7 +47,8 @@ _SOURCE = "flash_attention"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # bf16 at 192 and 256 runs the list kernels, bf16 past 256 the D-split
 # kernels (bsa_fwd_dsplit_wgmma_kernel, bsa_dq_dsplit_wgmma_kernel,
-# bsa_dkv_dsplit_wgmma_kernel), fp32 past 128 the wide kernels
+# bsa_dkv_dsplit_wgmma_kernel); fp32 past 128 the 3xTF32 forward and dK/dV
+# (bsa_fwd_tf32_kernel, bsa_dkv_tf32_kernel) and the FMA wide_dq_kernel
 _HEAD_DIMS = tuple(range(64, 513, 64))
 _TILE = 64
 _M32 = 0xFFFFFFFF

@@ -60,8 +60,10 @@ def _close(got, want):
 def _sides(inputs, mask, causal, got, want):
     """Where each of out, dq, dk, dv (``got`` the port's, ``want`` the
     JAX side's) misses most, each side's distance from the float64 value
-    (dense attention under the expanded mask, autograd), and the xdist
-    worker: which side moved, when a run misses."""
+    (dense attention under the expanded mask, autograd), and the process
+    state a difference between runs of the same inputs could come from
+    (thread counts, matmul precisions, XLA flags, denormal flushing, the
+    xdist worker): which side moved, when a run misses."""
     q, k, v = (torch.tensor(x, dtype=torch.float64, requires_grad=True)
                for x in inputs[:3])
     sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
@@ -82,8 +84,16 @@ def _sides(inputs, mask, causal, got, want):
         lines.append(f"{name} worst at {tuple(int(i) for i in at)}: port "
                      f"off float64 by {abs(a[at] - x[at]):.3g}, jax by "
                      f"{abs(b[at] - x[at]):.3g}")
+    tiny = np.array([1e-38], np.float32)
     return "; ".join(lines) + (
-        f"; worker {os.environ.get('PYTEST_XDIST_WORKER')}")
+        f"; torch threads {torch.get_num_threads()}/"
+        f"{torch.get_num_interop_threads()}, torch fp32 matmul "
+        f"{torch.get_float32_matmul_precision()}, jax matmul "
+        f"{jax.config.jax_default_matmul_precision}, XLA_FLAGS "
+        f"{os.environ.get('XLA_FLAGS')!r}, numpy flushes denormals "
+        f"{bool((tiny * np.float32(0.25))[0] == 0)}, torch flushes "
+        f"denormals {bool((torch.from_numpy(tiny) * 0.25)[0] == 0)}, "
+        f"worker {os.environ.get('PYTEST_XDIST_WORKER')}")
 
 
 M_LG = bsa.local_global_mask(2, 2, window=0, global_blocks=1)
@@ -97,7 +107,8 @@ BLOCK_CASES = [
     (1, 512, 2, 32, np.array([[1, 1, 0, 0], [1, 0, 1, 1]], bool), True),
     (1, 512, 1, 128, np.array([[1, 0, 0, 1], [0, 1, 1, 0]], bool), False),
     # head dims past 128: in bf16 the card runs the list kernels of
-    # attention_wgmma.cuh at 192 and 256, the wide kernels past
+    # attention_wgmma.cuh at 192 and 256 and its D-split kernels past; in
+    # fp32 the 3xTF32 forward and dK/dV of attention_tf32.cuh
     (1, 256, 2, 192, M_LG, False),
     # causal at D 192, kv block 2 attended by no q block (dK, dV zero)
     (1, 384, 1, 192, np.array([[1, 0, 0], [1, 1, 0], [0, 1, 0]], bool),

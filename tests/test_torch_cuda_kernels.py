@@ -1402,6 +1402,181 @@ def test_dsplit_backward_limit_rejects_a_short_depth_or_offset(
     for err in broken_err.values():
         assert err > REL_TOL[torch.bfloat16]
 
+# bsa_fwd_tf32_kernel and bsa_dkv_tf32_kernel (attention_tf32.cuh): the
+# fp32 forward and dK/dV at padded D 192..512, 3xTF32 on the tensor cores
+TF32_HEAD_DIMS = [192, 256, 320, 384, 448, 512]
+
+
+@pytest.mark.parametrize("d", TF32_HEAD_DIMS)
+@pytest.mark.parametrize("bh,sq,sk,causal,dropout", DSPLIT_FLASH_CASES)
+def test_tf32_forward_matches_plain_flash(card, bh, sq, sk, causal, dropout,
+                                          d):
+    """The fp32 flash forward past D 128 (bsa_fwd_tf32_kernel: 128 q rows
+    a block at D 192 and 256, 64 past it with two warps a row group
+    splitting the columns) launches once and agrees with the plain
+    version within the fp32 limits, dropout keep bits, causal offsets,
+    sq > sk and an odd count of 64-row tiles included."""
+    from paddle_tpu_torch.ops.flash_attention import KERNEL_NAMES, flash_fwd
+
+    q, k, v, _ = flash_inputs(bh, sq, sk, d, torch.float32, card,
+                              seed=sq + sk + d + 2)
+    _forward_agrees(flash_fwd, q, k, v, (causal, d ** -0.5, dropout, 77),
+                    KERNEL_NAMES[0], torch.float32)
+
+
+@pytest.mark.parametrize("d", TF32_HEAD_DIMS)
+@pytest.mark.parametrize("bh,sq,sk,blk_q,blk_k,causal,empty",
+                         DSPLIT_SPARSE_CASES)
+def test_tf32_forward_matches_plain_sparse(card, bh, sq, sk, blk_q, blk_k,
+                                           causal, empty, d):
+    """The fp32 block-sparse forward past D 128 (bsa_fwd_tf32_kernel over
+    the q-major lists) launches once and agrees with the plain version,
+    rows that see no column included (0, lse -inf)."""
+    from paddle_tpu_torch.ops.block_sparse_attention import (KERNEL_NAMES,
+                                                             bsa_fwd)
+
+    spec, q, k, v, _ = bsa_case(bh, sq, sk, d, blk_q, blk_k, causal, empty,
+                                torch.float32, card)
+    _forward_agrees(bsa_fwd, q, k, v, (spec, causal, d ** -0.5),
+                    KERNEL_NAMES[0], torch.float32)
+
+
+@pytest.mark.parametrize("d", TF32_HEAD_DIMS)
+@pytest.mark.parametrize("bh,sq,sk,causal,dropout", DSPLIT_FLASH_CASES)
+def test_tf32_backward_matches_plain_flash(card, bh, sq, sk, causal,
+                                           dropout, d):
+    """The fp32 flash dK/dV past D 128 (bsa_dkv_tf32_kernel, a role a
+    warp) and dQ (wide_dq_kernel) launch once each and agree with the
+    plain versions within the fp32 limits, dropout keep bits and causal
+    offsets included."""
+    from paddle_tpu_torch.ops.flash_attention import (KERNEL_NAMES,
+                                                      flash_dkv, flash_dq,
+                                                      flash_fwd)
+
+    q, k, v, do = flash_inputs(bh, sq, sk, d, torch.float32, card,
+                               seed=sq + sk + d + 3)
+    _backward_agrees(flash_fwd, flash_dq, flash_dkv, q, k, v, do,
+                     (causal, d ** -0.5, dropout, 77), KERNEL_NAMES,
+                     torch.float32)
+
+
+@pytest.mark.parametrize("d", TF32_HEAD_DIMS)
+@pytest.mark.parametrize("bh,sq,sk,blk_q,blk_k,causal,empty",
+                         DSPLIT_SPARSE_CASES)
+def test_tf32_backward_matches_plain_sparse(card, bh, sq, sk, blk_q, blk_k,
+                                            causal, empty, d):
+    """The fp32 block-sparse dK/dV past D 128 (bsa_dkv_tf32_kernel over
+    the kv-major lists) and dQ launch once each and agree with the plain
+    versions: a kv block nothing attends and rows that see no column give
+    exact zeros."""
+    from paddle_tpu_torch.ops.block_sparse_attention import (KERNEL_NAMES,
+                                                             bsa_dkv, bsa_dq,
+                                                             bsa_fwd)
+
+    spec, q, k, v, do = bsa_case(bh, sq, sk, d, blk_q, blk_k, causal, empty,
+                                 torch.float32, card)
+    _backward_agrees(bsa_fwd, bsa_dq, bsa_dkv, q, k, v, do,
+                     (spec, causal, d ** -0.5), KERNEL_NAMES, torch.float32)
+
+
+@pytest.mark.parametrize("family", ["flash", "sparse"])
+@pytest.mark.parametrize("d", [256, 512])
+def test_tf32_dkv_is_deterministic(card, family, d):
+    """bsa_dkv_tf32_kernel keeps the reference's split from dQ and uses no
+    atomics: two runs give the same bits (flash with causal dropout,
+    block-sparse on a BigBird-like pattern with an empty kv block)."""
+    from paddle_tpu_torch.ops import block_sparse_attention as bsa
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = flash_inputs(4, 1024, 1024, d, torch.float32, card, d)
+    if family == "flash":
+        args = (True, d ** -0.5, 0.1, 5)
+        fwd, dkv = fa.flash_fwd, fa.flash_dkv
+    else:
+        mask = bigbird_like(8, seed=d)
+        mask[:, 3] = False
+        args = (bsa.block_mask_spec(mask, 1024, 1024, False), False,
+                d ** -0.5)
+        fwd, dkv = bsa.bsa_fwd, bsa.bsa_dkv
+    out, lse = fwd(q, k, v, *args, impl="torch")
+    delta = (do * out).sum(-1)
+    first = dkv(q, k, v, do, lse, delta, *args)
+    second = dkv(q, k, v, do, lse, delta, *args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# the 3xTF32 kernels broken: kind -> (file, function, a line of it, the
+# line broken); the kind's first word names the output it breaks ("tf32"
+# both)
+TF32_MUTATIONS = {
+    # every product plain TF32: the hi x hi term alone
+    "tf32_plain": ("attention_tf32.cuh", "mma_3xtf32",
+                   "if (kTf32Corrections) {", "if (false) {"),
+    # the forward's scores leave Q K^T's last 64 columns of depth out
+    "fwd_depth": ("attention_tf32.cuh", "bsa_fwd_tf32_kernel",
+                  "scores_3xtf32<BN / 8, D>(", "scores_3xtf32<BN / 8, D - 64>("),
+    # the second warp of a row group multiplies p by V's first columns
+    "fwd_columns": ("attention_tf32.cuh", "bsa_fwd_tf32_kernel",
+                    "pv_3xtf32<BN / 8, kCols>(o, s, v_t, BN, c_own);",
+                    "pv_3xtf32<BN / 8, kCols>(o, s, v_t, BN, 0);"),
+    # role P's S^T leaves its last 64 columns of depth out
+    "dkv_depth": ("attention_tf32.cuh", "bsa_dkv_tf32_kernel",
+                  "scores_3xtf32<R / 8, D>(sc, ks,",
+                  "scores_3xtf32<R / 8, D - 64>(sc, ks,"),
+    # the second column part's role dS multiplies ds^T by Q's first
+    # columns
+    "dkv_columns": ("attention_tf32.cuh", "bsa_dkv_tf32_kernel",
+                    "pv_3xtf32<R / 8, kCols>(acc, sc, q_t, R, c_own);",
+                    "pv_3xtf32<R / 8, kCols>(acc, sc, q_t, R, 0);"),
+}
+
+
+def test_tf32_limits_reject_plain_tf32_a_short_depth_or_offset(
+        card, tmp_path, monkeypatch):
+    """The fp32 limits tell the 3xTF32 forward and dK/dV from broken ones:
+    the flash source is rebuilt beside copies of attention_tf32.cuh whose
+    products are plain TF32 (no correction terms), whose forward scores
+    or dK/dV S^T leave the last 64 columns of depth out, and whose second
+    column part (past D 256) reads V's or Q's first columns; at BH 4, S
+    1024, causal, D 256 and 512, each result a mutant breaks must miss
+    REL_TOL (a column mutant only at D 512, where the parts exist), while
+    the right kernels meet the limits. Prints both readings."""
+    import ctypes
+
+    cases = {}
+    for d in (256, 512):
+        q, k, v, do = flash_inputs(4, 1024, 1024, d, torch.float32, card,
+                                   seed=61 + d)
+        args = (True, d ** -0.5, 0.0, 0)
+        for kind in ("fwd", "dkv"):
+            cases[kind, d] = (lambda kind=kind, t=(q, k, v, do), a=args,
+                              **kw: _flash_case(kind, *t, a, **kw))
+    want = {case: fn(impl="torch") for case, fn in cases.items()}
+    right = {case: rel_err(fn(), want[case]) for case, fn in cases.items()}
+    for (kind, d), fn in cases.items():
+        _close(fn(), want[kind, d], torch.float32)
+    procs = {kind: _build_mutant(kind, tmp_path / kind, TF32_MUTATIONS,
+                                 "flash_attention.cu")
+             for kind in TF32_MUTATIONS}
+    broken_err = {}
+    for kind, (lib, proc) in procs.items():
+        out = proc.communicate()[0]
+        assert proc.returncode == 0, out.decode()[-2000:]
+        monkeypatch.setitem(_build._LIBS, "flash_attention",
+                            ctypes.CDLL(str(lib)))
+        for (out_kind, d), fn in cases.items():
+            if kind.startswith("tf32_") or (
+                    kind.startswith(out_kind + "_")
+                    and (d > 256 or not kind.endswith("_columns"))):
+                broken_err[kind, d] = rel_err(fn(), want[out_kind, d])
+    print(f"3xTF32 fp32 rel err, right kernels: {right}; broken: "
+          f"{broken_err}; limit {REL_TOL[torch.float32]}")
+    assert len(broken_err) == 4 + 2 + 2 + 1 + 1
+    for err in broken_err.values():
+        assert err > REL_TOL[torch.float32]
+
+
 # The tests below that read kernel names from torch.profiler come after
 # every test that launches a kernel for the first time: a kernel first
 # launched (its module loaded, lazily) after a profiler window has torn
@@ -1439,15 +1614,17 @@ def _ran(kernel: str, names) -> bool:
     (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.bfloat16, 192),
     (torch.bfloat16, 256), (torch.bfloat16, 320), (torch.bfloat16, 512),
     (torch.float32, 128), (torch.float32, 256), (torch.bfloat16, 384),
-    (torch.bfloat16, 448)])
+    (torch.bfloat16, 448), (torch.float32, 192), (torch.float32, 320),
+    (torch.float32, 512)])
 def test_forward_dispatch_takes_the_wgmma_list_kernel(card, family, dtype,
                                                        d):
     """The forward's dispatch: bsa_fwd_wgmma_kernel runs the bf16
     block-sparse forward at padded D 64..256 and the bf16 flash forward at
     192 and 256; fa_fwd_wgmma_kernel the bf16 flash forward at 64 and
     128; bsa_fwd_dsplit_wgmma_kernel the bf16 forward of both families at
-    320, 384, 448 and 512; fp32 stays on its kernels at every D
-    (wide_fwd_kernel past 128). One launch, counted, within the limits."""
+    320, 384, 448 and 512; bsa_fwd_tf32_kernel the fp32 forward of both
+    families at 192..512; fp32 at 64 and 128 each family's FMA kernel.
+    One launch, counted, within the limits."""
     from paddle_tpu_torch.ops.block_sparse_attention import (
         KERNEL_NAMES as BSA_NAMES, bsa_fwd)
     from paddle_tpu_torch.ops.flash_attention import (
@@ -1475,7 +1652,7 @@ def test_forward_dispatch_takes_the_wgmma_list_kernel(card, family, dtype,
     elif bf16 and d <= 128:
         want = "fa_fwd_wgmma_kernel"
     elif d > 128:
-        want = "wide_fwd_kernel"
+        want = "bsa_fwd_tf32_kernel"
     else:
         want = "fa_fwd_kernel" if family == "flash" else "bsa_fwd_kernel"
     assert _ran(want, ran), (want, ran)
@@ -1514,15 +1691,17 @@ def _backward_case(family, dtype, d, device):
 @pytest.mark.parametrize("dtype,d", [
     (torch.bfloat16, 128), (torch.bfloat16, 192), (torch.bfloat16, 256),
     (torch.bfloat16, 512), (torch.float32, 256), (torch.bfloat16, 320),
-    (torch.bfloat16, 384), (torch.bfloat16, 448)])
+    (torch.bfloat16, 384), (torch.bfloat16, 448), (torch.float32, 192),
+    (torch.float32, 320), (torch.float32, 512)])
 def test_backward_dispatch_takes_the_wgmma_list_kernels(card, family, dtype,
                                                         d):
     """The backward's dispatch: bf16 at padded D 192 and 256 runs
     bsa_dq_wgmma_kernel and bsa_dkv_split_wgmma_kernel in both families;
     bf16 at 320, 384, 448 and 512 bsa_dq_dsplit_wgmma_kernel and
-    bsa_dkv_dsplit_wgmma_kernel in both families; fp32 past 128 stays on
-    wide_dq_kernel and wide_dkv_kernel; bf16 at 128 on each family's own
-    wgmma kernels. One launch each, counted, within the limits."""
+    bsa_dkv_dsplit_wgmma_kernel in both families; fp32 past 128
+    wide_dq_kernel (FMA) and bsa_dkv_tf32_kernel (3xTF32) in both
+    families; bf16 at 128 on each family's own wgmma kernels. One launch
+    each, counted, within the limits."""
     dq, dkv, names = _backward_case(family, dtype, d, card)
     bf16 = dtype == torch.bfloat16
     if bf16 and d in (192, 256):
@@ -1530,7 +1709,7 @@ def test_backward_dispatch_takes_the_wgmma_list_kernels(card, family, dtype,
     elif bf16 and d > 256:
         want = ("bsa_dq_dsplit_wgmma_kernel", "bsa_dkv_dsplit_wgmma_kernel")
     elif d > 128:
-        want = ("wide_dq_kernel", "wide_dkv_kernel")
+        want = ("wide_dq_kernel", "bsa_dkv_tf32_kernel")
     elif family == "flash":
         want = ("fa_dq_wgmma_kernel", "fa_dkv_wgmma_kernel")
     else:

@@ -53,7 +53,8 @@ CASES = [
     (1, 384, 256, 2, 64, False, 0.0),    # sq > sk, non-causal
     (1, 256, 256, 2, 128, False, 0.3),   # dropout at D = 128
     # head dims past 128: in bf16 the card runs the list kernels of
-    # attention_wgmma.cuh at padded D 192 and 256, the wide kernels past
+    # attention_wgmma.cuh at padded D 192 and 256 and its D-split kernels
+    # past; in fp32 the 3xTF32 forward and dK/dV of attention_tf32.cuh
     (1, 256, 256, 2, 160, False, 0.0),   # D zero-padded to 192
     (1, 256, 256, 2, 160, True, 0.0),
     (1, 256, 256, 2, 256, False, 0.0),
