@@ -50,34 +50,33 @@
 //           four n-tiles are one chunk of V's row (n-tile 4 i + u, column
 //           n is 32 i + 4 n + u); store_rows undoes that order.
 //
-// Forward: a block owns 128 q rows at D 192 and 256 (8 warps of 16 rows,
-// an accumulator of D / 2 registers a thread) and 64 past 256, where two
-// warps share 16 rows and split the output's columns (D / 2 each: 80..128
-// registers). Q stays in shared memory (loaded once by TMA); K and V come
-// through a ring of items of their own (K of walk step t item 2 t, V item
-// 2 t + 1) of 16..64 kv rows, as many slots as 227 KB hold beside Q (at
-// least 3): thread 0 refills a slot once every warp has released it. Each
-// warp computes S = Q K^T for its 16 rows over the full D once a kv tile:
-// at D 192 and 256 the scores are computed once; past 256 twice (each of
-// the two warps of a row group computes them, the same bits, hence the
-// same m, l and p), never once a 64-column slice as the FMA kernel did
+// Forward: a block owns 64 q rows and 8 warps, 4 row groups of 16 rows
+// by 2 column parts: a warp's accumulator holds D / 2 columns of its 16
+// rows (48..128 registers a thread). Q stays in shared memory (loaded
+// once by TMA); K and V come through a ring of items of their own (K of
+// walk step t item 2 t, V item 2 t + 1) of 16..64 kv rows, as many slots
+// as fit beside Q and the exchange (2..4): thread 0 refills a slot once
+// every warp has released it. S = Q K^T is computed once a kv tile: each
+// of a row group's two warps sums half the depth and adds the other's
+// partial, through shared memory over a named barrier of the two
+// (add_partner); never once a 64-column slice, as the FMA kernel did
 // (D / 64 times).
 //
-// dK/dV: a block owns 64 kv rows at D 192 and 256, 32 past 256 (K and V
-// resident, loaded once by TMA), and its 8 warps split the work by role,
-// as bsa_dkv_split_wgmma_kernel does: P (S^T = K Q^T, p from lse, handed
-// to dS through shared memory in the accumulator's lane layout, then
-// dV += p_drop^T dO) and dS (dP^T = V dO^T, ds^T from p and delta, then
-// dK += ds^T Q), four warps a role: 4 row groups of 16 kv rows at D <= 256,
-// each with all D columns of its output (D / 2 registers); past 256, 2
-// row groups by 2 column parts of D / 2, whose warps both compute the
-// group's S^T (or dP^T). So the scores are computed once a q tile at
-// D <= 256 and twice past it. The q tiles (8..32 rows, as many ring slots
-// as fit beside K, V and the p tile, at least 4) come through the ring as
-// items of their own: Q with its rows' lse (walk step i item 2 i), dO
-// with their delta (item 2 i + 1). Named barriers 1..4 (p written) and
-// 5..8 (p read) pair each P warp with its dS warp. No atomics: the result
-// is deterministic.
+// dK/dV: a block owns 32 kv rows (K and V resident, loaded once by TMA)
+// and 8 warps that split the work by role, as
+// bsa_dkv_split_wgmma_kernel does: P (S^T = K Q^T, p from lse, handed to
+// dS through shared memory in the accumulator's lane layout, then dV +=
+// p_drop^T dO) and dS (dP^T = V dO^T, ds^T from p and delta, then dK +=
+// ds^T Q); a role's four warps are 2 row groups of 16 kv rows by 2
+// column parts of D / 2 (48..128 registers), and the two warps of a
+// role's row group each sum half the depth of S^T (or dP^T) and add the
+// other's, as the forward's do: the scores are computed once a q tile.
+// The q tiles (8..32 rows, as many ring slots as fit beside K, V, the p
+// tile and the exchange, at least 4) come through the ring as items of
+// their own: Q with its rows' lse (walk step i item 2 i), dO with their
+// delta (item 2 i + 1). Named barriers 1..4 (p written) and 5..8 (p
+// read) pair each P warp with its dS warp, 9..12 the two parts' warps of
+// a role and row group. No atomics: the result is deterministic.
 //
 // Both walk the lists as the wgmma kernels do: under causal the forward's
 // walk ends at the first kv tile past the block's last column (lists
@@ -99,6 +98,8 @@
 namespace {
 
 constexpr int kTf32Threads = 256;     // 8 warps
+// a row group's warps split the output's columns (and the scores' depth)
+constexpr int kTf32Parts = 2;
 constexpr int kMaxBlockSmem = 232448;  // what a block may take
 
 // False makes every product plain TF32 (a_hi b_hi alone). The card tests
@@ -164,7 +165,8 @@ __device__ __forceinline__ float4 ld_chunk(const unsigned char* tile,
                                           ((c ^ (r & 7)) << 4));
 }
 
-// s (16 x 8 NT) = A B^T over the first Depth columns: A's rows a_r0 ..
+// s (16 x 8 NT) = A B^T over Depth columns from 32-column block cb0 (0:
+// the first Depth columns): A's rows a_r0 ..
 // a_r0 + 15 of tile a (a_rows rows) and B's rows 0 .. 8 NT - 1 of tile b
 // (b_rows rows), in the depth order of the header. s[j] is n-tile j in
 // mma's accumulator layout: (row g, columns 8 j + 2 t, + 1), (row g + 8,
@@ -177,14 +179,14 @@ __device__ __forceinline__ void scores_3xtf32(float (&s)[NT][4],
                                               const unsigned char* a,
                                               int a_rows, int a_r0,
                                               const unsigned char* b,
-                                              int b_rows) {
+                                              int b_rows, int cb0 = 0) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll 1
-  for (int cb = 0; cb < Depth / 32; ++cb)
+  for (int cb = cb0; cb < cb0 + Depth / 32; ++cb)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = 2 * t + h;
@@ -301,21 +303,14 @@ cudaError_t tf32_head_dim(int d, const F& f) {
 
 // ---------------------------------------------------------------- forward
 
-// column parts of the output (the warps of a row group): 1, or 2 past 256
-template <int D>
-__host__ __device__ constexpr int fwd_tf32_parts() {
-  return D <= 256 ? 1 : 2;
-}
-// q rows a block owns: 16 a row group, 8 warps
-template <int D>
-__host__ __device__ constexpr int fwd_tf32_rows() {
-  return 8 * 16 / fwd_tf32_parts<D>();
-}
+// shared memory: Q, the ring, and the exchange of partial scores (a
+// 16 x kv_rows fp32 tile a warp)
 template <int D>
 __host__ __device__ constexpr size_t fwd_tf32_smem_at(int kv_rows,
                                                       int slots) {
-  return 1024 + (size_t)fwd_tf32_rows<D>() * D * 4 +
-         (size_t)slots * kv_rows * D * 4 + (1 + 2 * slots) * 8;
+  return 1024 + (size_t)kTile * D * 4 + (size_t)slots * kv_rows * D * 4 +
+         (size_t)kTf32Threads / 32 * 16 * kv_rows * 4 +
+         (1 + 2 * slots) * 8;
 }
 template <int D>
 __host__ __device__ constexpr int fwd_tf32_slots_at(int kv_rows) {
@@ -323,7 +318,8 @@ __host__ __device__ constexpr int fwd_tf32_slots_at(int kv_rows) {
   while (n < 8 && fwd_tf32_smem_at<D>(kv_rows, n + 1) <= kMaxBlockSmem) ++n;
   return n;
 }
-// kv rows of a ring item: the most of 64, 32, 16 that leaves 3 slots
+// kv rows of a ring item: the most of 64, 32, 16 that leaves 3 slots, or
+// 16 (with 2)
 template <int D>
 __host__ __device__ constexpr int fwd_tf32_kv_rows() {
   return fwd_tf32_slots_at<D>(64) >= 3   ? 64
@@ -338,16 +334,42 @@ template <int D>
 constexpr size_t fwd_tf32_smem() {
   return fwd_tf32_smem_at<D>(fwd_tf32_kv_rows<D>(), fwd_tf32_slots<D>());
 }
-static_assert(fwd_tf32_slots<192>() >= 3 && fwd_tf32_slots<256>() >= 3 &&
-                  fwd_tf32_slots<320>() >= 3 && fwd_tf32_slots<384>() >= 3 &&
-                  fwd_tf32_slots<448>() >= 3 && fwd_tf32_slots<512>() >= 3 &&
+static_assert(fwd_tf32_slots<192>() >= 2 && fwd_tf32_slots<256>() >= 2 &&
+                  fwd_tf32_slots<320>() >= 2 && fwd_tf32_slots<384>() >= 2 &&
+                  fwd_tf32_slots<448>() >= 2 && fwd_tf32_slots<512>() >= 2 &&
                   fwd_tf32_smem<192>() <= kMaxBlockSmem &&
                   fwd_tf32_smem<256>() <= kMaxBlockSmem &&
                   fwd_tf32_smem<320>() <= kMaxBlockSmem &&
                   fwd_tf32_smem<384>() <= kMaxBlockSmem &&
                   fwd_tf32_smem<448>() <= kMaxBlockSmem &&
                   fwd_tf32_smem<512>() <= kMaxBlockSmem,
-              "a block asks for more than 227 KB of shared memory");
+              "a block asks for more shared memory than it may take");
+
+// s += the partner warp's s (the other half of the depth) through shared
+// memory: this warp's 16 x 8 NT partial at mine, the partner's at theirs,
+// in the accumulator's lane layout, over named barrier `bar` of the two
+// warps (`again`: a previous exchange's reads must end before the
+// writes). Both warps add the same two partials, in either order: the
+// same bits.
+template <int NT>
+__device__ __forceinline__ void add_partner(float (&s)[NT][4], float4* mine,
+                                            const float4* theirs, int bar,
+                                            bool again) {
+  const int lane = threadIdx.x % 32;
+  if (again) named_barrier(bar, 64);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    mine[j * 32 + lane] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+  named_barrier(bar, 64);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float4 o = theirs[j * 32 + lane];
+    s[j][0] += o.x;
+    s[j][1] += o.y;
+    s[j][2] += o.z;
+    s[j][3] += o.w;
+  }
+}
 
 template <int D, bool kDropout>
 __global__ void __launch_bounds__(kTf32Threads, 1)
@@ -357,20 +379,27 @@ bsa_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
                     float* __restrict__ out, float* __restrict__ lse,
                     BlockList L, int sq, int sk, int causal, float scale,
                     Dropout drop) {
-  constexpr int kParts = fwd_tf32_parts<D>(), kCols = D / kParts;
-  constexpr int kRows = fwd_tf32_rows<D>(), kRowWarps = kRows / 16;
+  // 64 q rows: 4 row groups of 16 by 2 column parts
+  constexpr int kParts = kTf32Parts, kCols = D / kParts;
+  constexpr int kRows = kTile, kRowWarps = kRows / 16;
+  constexpr int kThreads = kTf32Threads;
   constexpr int BN = fwd_tf32_kv_rows<D>(), kSlots = fwd_tf32_slots<D>();
   constexpr int kQBytes = kRows * D * 4, kItemBytes = BN * D * 4;
   extern __shared__ unsigned char tf_smem[];
   unsigned char* qs = align_1024(tf_smem);
   unsigned char* kvs = qs + kQBytes;  // [kSlots] K or V tiles
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(kvs + kSlots * kItemBytes);
+  // [warps][BN / 8][32] partial scores
+  float4* xchg = reinterpret_cast<float4*>(kvs + kSlots * kItemBytes);
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(xchg + kThreads / 32 * (BN / 8) * 32);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + kSlots;
 
+  // heaviest first, every batch-head side by side: flash's dense walk
+  // its last q tile, block-sparse by L.order
   const int bh = blockIdx.x;
   int blk = 0, q0;
-  if (L.idx == nullptr) {  // flash's dense walk: the last q rows first
+  if (L.idx == nullptr) {
     q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
   } else {
     const int per = L.blk_own / kRows;
@@ -379,9 +408,7 @@ bsa_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   const int offset = sk - sq;
   const int n_t = list_len(L, blk) * (L.blk_other / BN);
-  // the block's last column (flash: its last row may lie past sq, whose
-  // Q rows TMA reads as zeros and whose outputs are not stored)
-  const int last_col = min(q0 + kRows, sq) - 1 + offset;
+  const int last_col = q0 + kRows - 1 + offset;  // the block's last column
   const auto in_walk = [&](int t, const TileWalk<BN>& w) {
     return t < n_t && !(causal && w.col() > last_col);
   };
@@ -405,7 +432,7 @@ bsa_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_init(q_full, 1);
     for (int s = 0; s < kSlots; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kTf32Threads);
+      mbar_init(&empty[s], kThreads);
     }
     mbar_fence_init();
     mbar_expect_tx(q_full, kQBytes);
@@ -428,26 +455,32 @@ bsa_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int warp = threadIdx.x / 32, t = threadIdx.x % 4;
   const int g = (threadIdx.x % 32) / 4;
-  const int r_lo = 16 * (warp % kRowWarps), c_own = warp / kRowWarps * kCols;
+  const int group = warp % kRowWarps, part = warp / kRowWarps;
+  const int r_lo = 16 * group, c_own = part * kCols;
   const int rows[2] = {q0 + r_lo + g, q0 + r_lo + g + 8};
-  const bool live = q0 + r_lo < sq;
   if (!kDropout) drop.on = 0;  // compiled without the dropout code
   const uint32_t key = dropout_key(drop, bh);
   float o[kCols / 8][4] = {};
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   mbar_wait(q_full, 0);
   TileWalk<BN> w(L, blk);
+  int n_x = 0;  // exchanges of partial scores made
   for (int tt = 0; in_walk(tt, w); ++tt, w.next()) {
     const int c0 = w.col(), jk = 2 * tt, jv = jk + 1;
-    // a tile wholly above the warp's diagonal: nothing to do
-    const bool work = live && !(causal && c0 > q0 + r_lo + 15 + offset);
+    // a tile wholly above the row group's diagonal: nothing to do
+    const bool work = !(causal && c0 > q0 + r_lo + 15 + offset);
     float s[BN / 8][4];
     mbar_wait(&full[jk % kSlots], (jk / kSlots) & 1);
+    // each warp of the row group sums its half of the depth
     if (work)
-      scores_3xtf32<BN / 8, D>(s, qs, kRows, r_lo,
-                               kvs + (jk % kSlots) * kItemBytes, BN);
+      scores_3xtf32<BN / 8, D / kParts>(s, qs, kRows, r_lo,
+                                        kvs + (jk % kSlots) * kItemBytes, BN,
+                                        part * (D / kParts / 32));
     release(jk);
     if (work) {
+      add_partner<BN / 8>(s, xchg + warp * (BN / 8) * 32,
+                          xchg + (warp ^ kRowWarps) * (BN / 8) * 32,
+                          1 + group, n_x++ > 0);
       // the online softmax, in fp32, as attention_tiles.cuh's fwd_update
       const bool mask = causal && c0 + BN - 1 > q0 + r_lo + offset;
       float mx[2] = {-INFINITY, -INFINITY};
@@ -498,7 +531,6 @@ bsa_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (work) pv_3xtf32<BN / 8, kCols>(o, s, v_t, BN, c_own);
     release(jv);
   }
-  if (!live) return;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const size_t row = (size_t)bh * sq + rows[h];
@@ -514,9 +546,9 @@ cudaError_t launch_fwd_tf32_at(const void* q, const void* k, const void* v,
                                void* out, void* lse, BlockList L, int bh,
                                int sq, int sk, int causal, float scale,
                                Dropout drop, cudaStream_t st) {
-  constexpr int kRows = fwd_tf32_rows<D>(), BN = fwd_tf32_kv_rows<D>();
+  constexpr int BN = fwd_tf32_kv_rows<D>();
   CUtensorMap tq, tk, tv;
-  cudaError_t err = f32_map(&tq, q, bh, sq, D, kRows);
+  cudaError_t err = f32_map(&tq, q, bh, sq, D, kTile);
   if (err == cudaSuccess) err = f32_map(&tk, k, bh, sk, D, BN);
   if (err == cudaSuccess) err = f32_map(&tv, v, bh, sk, D, BN);
   if (err != cudaSuccess) return err;
@@ -524,8 +556,7 @@ cudaError_t launch_fwd_tf32_at(const void* q, const void* k, const void* v,
                                     : bsa_fwd_tf32_kernel<D, false>;
   err = set_smem(kernel, fwd_tf32_smem<D>());
   if (err != cudaSuccess) return err;
-  const int n_blocks = (sq + kRows - 1) / kRows;
-  kernel<<<dim3(bh, n_blocks), kTf32Threads, fwd_tf32_smem<D>(), st>>>(
+  kernel<<<dim3(bh, sq / kTile), kTf32Threads, fwd_tf32_smem<D>(), st>>>(
       tq, tk, tv, static_cast<float*>(out), static_cast<float*>(lse), L, sq,
       sk, causal, scale, drop);
   return cudaGetLastError();
@@ -548,22 +579,17 @@ cudaError_t launch_fwd_tf32(int d, const void* q, const void* k,
 
 // ------------------------------------------------------------------ dK/dV
 
-// column parts of dK and dV (warps of a row group and role): 1, or 2 past
-// 256
-template <int D>
-__host__ __device__ constexpr int dkv_tf32_parts() {
-  return D <= 256 ? 1 : 2;
-}
-// kv rows a block owns: 16 a row group, 4 warps a role
-template <int D>
-__host__ __device__ constexpr int dkv_tf32_kv_rows() {
-  return 4 * 16 / dkv_tf32_parts<D>();
-}
+// kv rows a block owns: 2 roles by 2 row groups of 16 by kTf32Parts
+constexpr int kDkvTf32Rows = 32;
+
+// shared memory: K and V, the ring's q tiles with their lse or delta, the
+// p hand-over of the 4 P / dS pairs and the exchange of partial scores (a
+// 16 x rows fp32 tile a warp)
 template <int D>
 __host__ __device__ constexpr size_t dkv_tf32_smem_at(int rows, int slots) {
-  return 1024 + 2 * (size_t)dkv_tf32_kv_rows<D>() * D * 4 +
+  return 1024 + 2 * (size_t)kDkvTf32Rows * D * 4 +
          (size_t)slots * (rows * D * 4 + rows * 4) + 4 * 16 * rows * 4 +
-         (1 + 2 * slots) * 8;
+         8 * 16 * rows * 4 + (1 + 2 * slots) * 8;
 }
 template <int D>
 __host__ __device__ constexpr int dkv_tf32_slots_at(int rows) {
@@ -571,13 +597,15 @@ __host__ __device__ constexpr int dkv_tf32_slots_at(int rows) {
   while (n < 8 && dkv_tf32_smem_at<D>(rows, n + 1) <= kMaxBlockSmem) ++n;
   return n;
 }
-// q rows of a ring item: the most of 32, 16, 8 that leaves 4 slots (two
-// walk steps)
+// ring slots dK/dV wants: Q and dO of one walk step (larger q tiles beat
+// more slots at D 448 and 512)
+constexpr int kDkvTf32Slots = 2;
+// q rows of a ring item: the most of 32, 16, 8 that leaves kDkvTf32Slots
 template <int D>
 __host__ __device__ constexpr int dkv_tf32_rows() {
-  return dkv_tf32_slots_at<D>(32) >= 4   ? 32
-         : dkv_tf32_slots_at<D>(16) >= 4 ? 16
-                                         : 8;
+  return dkv_tf32_slots_at<D>(32) >= kDkvTf32Slots   ? 32
+         : dkv_tf32_slots_at<D>(16) >= kDkvTf32Slots ? 16
+                                                     : 8;
 }
 template <int D>
 __host__ __device__ constexpr int dkv_tf32_slots() {
@@ -587,9 +615,12 @@ template <int D>
 constexpr size_t dkv_tf32_smem() {
   return dkv_tf32_smem_at<D>(dkv_tf32_rows<D>(), dkv_tf32_slots<D>());
 }
-static_assert(dkv_tf32_slots<192>() >= 4 && dkv_tf32_slots<256>() >= 4 &&
-                  dkv_tf32_slots<320>() >= 4 && dkv_tf32_slots<384>() >= 4 &&
-                  dkv_tf32_slots<448>() >= 4 && dkv_tf32_slots<512>() >= 4 &&
+static_assert(dkv_tf32_slots<192>() >= kDkvTf32Slots &&
+                  dkv_tf32_slots<256>() >= kDkvTf32Slots &&
+                  dkv_tf32_slots<320>() >= kDkvTf32Slots &&
+                  dkv_tf32_slots<384>() >= kDkvTf32Slots &&
+                  dkv_tf32_slots<448>() >= kDkvTf32Slots &&
+                  dkv_tf32_slots<512>() >= kDkvTf32Slots &&
                   dkv_tf32_smem<192>() <= kMaxBlockSmem &&
                   dkv_tf32_smem<256>() <= kMaxBlockSmem &&
                   dkv_tf32_smem<320>() <= kMaxBlockSmem &&
@@ -608,8 +639,8 @@ bsa_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ delta, float* __restrict__ dk,
                     float* __restrict__ dv, BlockList L, int sq, int sk,
                     int causal, float scale, Dropout drop) {
-  constexpr int kParts = dkv_tf32_parts<D>(), kCols = D / kParts;
-  constexpr int BKV = dkv_tf32_kv_rows<D>(), kGroups = BKV / 16;
+  constexpr int kParts = kTf32Parts, kCols = D / kParts;
+  constexpr int BKV = kDkvTf32Rows, kGroups = BKV / 16;
   constexpr int R = dkv_tf32_rows<D>(), kSlots = dkv_tf32_slots<D>();
   constexpr int kKvBytes = BKV * D * 4, kItemBytes = R * D * 4;
   constexpr int kRowBytes = R * 4;
@@ -621,7 +652,8 @@ bsa_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
   // [kSlots][R]: the lse of a Q item's rows, the delta of a dO item's
   float* rows_s = reinterpret_cast<float*>(items + kSlots * kItemBytes);
   float4* p_s = reinterpret_cast<float4*>(rows_s + kSlots * R);  // [4][R/8][32]
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(p_s + 4 * (R / 8) * 32);
+  float4* xchg = p_s + 4 * (R / 8) * 32;  // [8 warps][R/8][32]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(xchg + 8 * (R / 8) * 32);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + kSlots;
 
@@ -684,13 +716,24 @@ bsa_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int role = warp / 4, pair = warp % 4, t = lane % 4, g = lane / 4;
-  const int k_lo = 16 * (pair % kGroups), c_own = pair / kGroups * kCols;
+  const int group = pair % kGroups, part = pair / kGroups;
+  const int k_lo = 16 * group, c_own = part * kCols;
   const int cols[2] = {c0 + k_lo + g, c0 + k_lo + g + 8};
   const int bar_full = 1 + pair, bar_empty = 5 + pair;  // this pair's p
   float4* p_w = p_s + pair * (R / 8) * 32;
   if (!kDropout) drop.on = 0;  // compiled without the dropout code
   const uint32_t key = dropout_key(drop, bh);
   float acc[kCols / 8][4] = {};  // dV in role P, dK in role dS
+  // the two parts' warps of a role and row group each sum half the depth
+  // of S^T (or dP^T) and add the other's
+  const auto scores = [&](float (&sc)[R / 8][4], const unsigned char* kv,
+                          const unsigned char* item, int i) {
+    scores_3xtf32<R / 8, D / kParts>(sc, kv, BKV, k_lo, item, R,
+                                     part * (D / kParts / 32));
+    add_partner<R / 8>(sc, xchg + warp * (R / 8) * 32,
+                       xchg + (warp ^ kGroups) * (R / 8) * 32,
+                       9 + 2 * role + group, i > 0);
+  };
   mbar_wait(kv_full, 0);
   for (int i = 0; i < n_t; ++i) {
     const int jq = 2 * i, jo = jq + 1, r0 = row_of(i);
@@ -702,7 +745,7 @@ bsa_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
       const float* lse_t = rows_s + (jq % kSlots) * R;
       const bool mask = causal && r0 + offset < c0 + k_lo + 15;
       mbar_wait(&full[jq % kSlots], (jq / kSlots) & 1);
-      scores_3xtf32<R / 8, D>(sc, ks, BKV, k_lo, q_t, R);
+      scores(sc, ks, q_t, i);
 #pragma unroll
       for (int j = 0; j < R / 8; ++j)
 #pragma unroll
@@ -733,7 +776,7 @@ bsa_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
       // dP^T = V dO^T, ds^T from p and delta; then dK += ds^T Q
       const float* dl_t = rows_s + (jo % kSlots) * R;
       mbar_wait(&full[jo % kSlots], (jo / kSlots) & 1);
-      scores_3xtf32<R / 8, D>(sc, vs, BKV, k_lo, do_t, R);
+      scores(sc, vs, do_t, i);
       named_barrier(bar_full, 64);
       float4 p[R / 8];
 #pragma unroll
@@ -782,7 +825,7 @@ cudaError_t launch_dkv_tf32_at(const void* q, const void* k, const void* v,
                                BlockList L, int bh, int sq, int sk,
                                int causal, float scale, Dropout drop,
                                cudaStream_t st) {
-  constexpr int BKV = dkv_tf32_kv_rows<D>(), R = dkv_tf32_rows<D>();
+  constexpr int BKV = kDkvTf32Rows, R = dkv_tf32_rows<D>();
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err = f32_map(&tq, q, bh, sq, D, R);
   if (err == cudaSuccess) err = f32_map(&tk, k, bh, sk, D, BKV);

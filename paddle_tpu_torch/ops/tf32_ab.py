@@ -3,8 +3,8 @@ variants of that header, on the card.
 
     python3 -m paddle_tpu_torch.ops.tf32_ab [VARIANT ...]
 
-Each variant is the header with one line replaced (``VARIANTS``); with no
-argument every variant runs. The flash and block-sparse sources are built
+Each variant is the header with a few lines replaced (``VARIANTS``); with
+no argument every variant runs. The flash and block-sparse sources are built
 beside each variant's header (and the header as it is), all at once, and
 each build's ptxas registers and spills of ``bsa_fwd_tf32_kernel`` and
 ``bsa_dkv_tf32_kernel`` are printed. Then, at the wide shapes of
@@ -36,26 +36,74 @@ from .list_backward_ab import bigbird_mask
 
 HEADER = "attention_tf32.cuh"
 SOURCES = ("flash_attention", "block_sparse_attention")
-# name -> (a line of the header, its replacement)
+# name -> ((lines of the header, their replacement), ...)
 VARIANTS = {
+    # every sum accumulated in the tensor core, which rounds toward zero:
+    # the scores over the whole depth, P V over the whole walk
+    "sums_in_tc": (
+        ("        float part[4] = {0.f, 0.f, 0.f, 0.f};\n"
+         "        mma_3xtf32(part, f0, y.x, y.y);\n"
+         "        mma_3xtf32(part, f1, y.z, y.w);\n"
+         "#pragma unroll\n"
+         "        for (int e = 0; e < 4; ++e) s[j][e] += part[e];",
+         "        mma_3xtf32(s[j], f0, y.x, y.y);\n"
+         "        mma_3xtf32(s[j], f1, y.z, y.w);"),
+        ("      mma_3xtf32(part[0], f[j], y0.x, y1.x);\n"
+         "      mma_3xtf32(part[1], f[j], y0.y, y1.y);\n"
+         "      mma_3xtf32(part[2], f[j], y0.z, y1.z);\n"
+         "      mma_3xtf32(part[3], f[j], y0.w, y1.w);\n"
+         "    }\n"
+         "#pragma unroll\n"
+         "    for (int u = 0; u < 4; ++u)\n"
+         "#pragma unroll\n"
+         "      for (int e = 0; e < 4; ++e) o[4 * i + u][e] += part[u][e];",
+         "      mma_3xtf32(o[4 * i], f[j], y0.x, y1.x);\n"
+         "      mma_3xtf32(o[4 * i + 1], f[j], y0.y, y1.y);\n"
+         "      mma_3xtf32(o[4 * i + 2], f[j], y0.z, y1.z);\n"
+         "      mma_3xtf32(o[4 * i + 3], f[j], y0.w, y1.w);\n"
+         "    }"),
+    ),
     # the scores' depth loop unrolled twice
-    "scores_unroll2": ("#pragma unroll 1\n  for (int cb = 0; cb < Depth / 32;",
-                       "#pragma unroll 2\n  for (int cb = 0; cb < Depth / 32;"),
-    # the forward's kv items always 16 rows
-    "fwd_kv16": ("  return fwd_tf32_slots_at<D>(64) >= 3   ? 64\n"
-                 "         : fwd_tf32_slots_at<D>(32) >= 3 ? 32",
-                 "  return false ? 64\n         : false ? 32"),
+    "scores_unroll2": (("#pragma unroll 1\n  for (int cb = cb0;",
+                        "#pragma unroll 2\n  for (int cb = cb0;"),),
+    # dK/dV's q tiles as large as leave 4 ring slots (two walk steps),
+    # not 2: 16 rows at D 320 and 384, 8 past it
+    "dkv_slots4": (("constexpr int kDkvTf32Slots = 2;",
+                    "constexpr int kDkvTf32Slots = 4;"),),
+    # P's A fragments split where each group of four n-tiles uses them,
+    # not once for all groups
+    "pv_split_late": (
+        ("  Tf32Frag f[KT];\n"
+         "#pragma unroll\n"
+         "  for (int j = 0; j < KT; ++j)\n"
+         "    split_a(f[j], p[j][0], p[j][2], p[j][1], p[j][3]);\n", ""),
+        ("      const float4 y1 = ld_chunk(v, v_rows, r + 1, c0 / 32 + i, g);\n"
+         "      mma_3xtf32(part[0], f[j], y0.x, y1.x);\n"
+         "      mma_3xtf32(part[1], f[j], y0.y, y1.y);\n"
+         "      mma_3xtf32(part[2], f[j], y0.z, y1.z);\n"
+         "      mma_3xtf32(part[3], f[j], y0.w, y1.w);",
+         "      const float4 y1 = ld_chunk(v, v_rows, r + 1, c0 / 32 + i, g);\n"
+         "      Tf32Frag f;\n"
+         "      split_a(f, p[j][0], p[j][2], p[j][1], p[j][3]);\n"
+         "      mma_3xtf32(part[0], f, y0.x, y1.x);\n"
+         "      mma_3xtf32(part[1], f, y0.y, y1.y);\n"
+         "      mma_3xtf32(part[2], f, y0.z, y1.z);\n"
+         "      mma_3xtf32(part[3], f, y0.w, y1.w);"),
+    ),
+    # the forward's kv items 16 rows at every head dim
+    "fwd_bn16": (("  return fwd_tf32_slots_at<D>(64) >= 3   ? 64\n"
+                  "         : fwd_tf32_slots_at<D>(32) >= 3 ? 32",
+                  "  return false ? 64\n         : false ? 32"),),
     # knock-outs (wrong results; what is left is timed): the two
     # correction products, P V (p^T dO, ds^T Q), the scores' products,
     # the split of each operand
-    "plain_tf32": ("constexpr bool kTf32Corrections = true;",
-                   "constexpr bool kTf32Corrections = false;"),
-    "no_pv": ("  for (int i = 0; i < N / 32; ++i) {\n    float part[4][4] = {};",
-              "  for (int i = 0; i < 0; ++i) {\n    float part[4][4] = {};"),
-    "no_scores": ("  for (int cb = 0; cb < Depth / 32; ++cb)",
-                  "  for (int cb = 0; cb < 0; ++cb)"),
-    "no_split": ("  hi = to_tf32(x);\n  lo = to_tf32(x - __uint_as_float(hi));",
-                 "  hi = __float_as_uint(x);\n  lo = hi;"),
+    "plain_tf32": (("constexpr bool kTf32Corrections = true;",
+                    "constexpr bool kTf32Corrections = false;"),),
+    "no_pv": (("  for (int i = 0; i < N / 32; ++i) {\n    float part[4][4] = {};",
+               "  for (int i = 0; i < 0; ++i) {\n    float part[4][4] = {};"),),
+    "no_scores": (("cb < cb0 + Depth / 32; ++cb)", "cb < cb0; ++cb)"),),
+    "no_split": (("  hi = to_tf32(x);\n  lo = to_tf32(x - __uint_as_float(hi));",
+                  "  hi = __float_as_uint(x);\n  lo = hi;"),),
 }
 
 
@@ -64,13 +112,12 @@ def build(out: Path, names) -> dict:
     sources, all built at once: (variant, source) -> (library, ptxas)."""
     header = (_build.CSRC / HEADER).read_text()
     procs = {}
-    for name in ("as_is", *names):
+    for name in dict.fromkeys(("as_is", *names)):
         text = header
-        if name != "as_is":
-            old, new = VARIANTS[name]
-            if header.count(old) != 1:
-                raise RuntimeError(f"{name}: the line is not where it was")
-            text = header.replace(old, new)
+        for old, new in VARIANTS.get(name, ()):
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: a line is not where it was")
+            text = text.replace(old, new)
         d = out / name
         d.mkdir()
         (d / HEADER).write_text(text)

@@ -1403,80 +1403,86 @@ def test_dsplit_backward_limit_rejects_a_short_depth_or_offset(
         assert err > REL_TOL[torch.bfloat16]
 
 # bsa_fwd_tf32_kernel and bsa_dkv_tf32_kernel (attention_tf32.cuh): the
-# fp32 forward and dK/dV at padded D 192..512, 3xTF32 on the tensor cores
+# fp32 forward and dK/dV at padded D 192..512, 3xTF32 on the tensor cores.
+# Each case runs at every head dim in one test: the cases add few test
+# ids to the suite.
 TF32_HEAD_DIMS = [192, 256, 320, 384, 448, 512]
 
 
-@pytest.mark.parametrize("d", TF32_HEAD_DIMS)
 @pytest.mark.parametrize("bh,sq,sk,causal,dropout", DSPLIT_FLASH_CASES)
-def test_tf32_forward_matches_plain_flash(card, bh, sq, sk, causal, dropout,
-                                          d):
-    """The fp32 flash forward past D 128 (bsa_fwd_tf32_kernel: 128 q rows
-    a block at D 192 and 256, 64 past it with two warps a row group
-    splitting the columns) launches once and agrees with the plain
-    version within the fp32 limits, dropout keep bits, causal offsets,
-    sq > sk and an odd count of 64-row tiles included."""
+def test_tf32_forward_matches_plain_flash(card, bh, sq, sk, causal,
+                                          dropout):
+    """The fp32 flash forward past D 128 (bsa_fwd_tf32_kernel: 64 q rows
+    a block, two warps a row group splitting the output's columns and the
+    scores' depth) launches once and agrees with the plain version within
+    the fp32 limits at each padded head dim 192..512, dropout keep bits,
+    causal offsets, sq > sk and an odd count of 64-row tiles included."""
     from paddle_tpu_torch.ops.flash_attention import KERNEL_NAMES, flash_fwd
 
-    q, k, v, _ = flash_inputs(bh, sq, sk, d, torch.float32, card,
-                              seed=sq + sk + d + 2)
-    _forward_agrees(flash_fwd, q, k, v, (causal, d ** -0.5, dropout, 77),
-                    KERNEL_NAMES[0], torch.float32)
+    for d in TF32_HEAD_DIMS:
+        q, k, v, _ = flash_inputs(bh, sq, sk, d, torch.float32, card,
+                                  seed=sq + sk + d + 2)
+        _forward_agrees(flash_fwd, q, k, v, (causal, d ** -0.5, dropout, 77),
+                        KERNEL_NAMES[0], torch.float32)
 
 
-@pytest.mark.parametrize("d", TF32_HEAD_DIMS)
 @pytest.mark.parametrize("bh,sq,sk,blk_q,blk_k,causal,empty",
                          DSPLIT_SPARSE_CASES)
 def test_tf32_forward_matches_plain_sparse(card, bh, sq, sk, blk_q, blk_k,
-                                           causal, empty, d):
+                                           causal, empty):
     """The fp32 block-sparse forward past D 128 (bsa_fwd_tf32_kernel over
-    the q-major lists) launches once and agrees with the plain version,
-    rows that see no column included (0, lse -inf)."""
+    the q-major lists) launches once and agrees with the plain version at
+    each padded head dim 192..512, rows that see no column included (0,
+    lse -inf)."""
     from paddle_tpu_torch.ops.block_sparse_attention import (KERNEL_NAMES,
                                                              bsa_fwd)
 
-    spec, q, k, v, _ = bsa_case(bh, sq, sk, d, blk_q, blk_k, causal, empty,
-                                torch.float32, card)
-    _forward_agrees(bsa_fwd, q, k, v, (spec, causal, d ** -0.5),
-                    KERNEL_NAMES[0], torch.float32)
+    for d in TF32_HEAD_DIMS:
+        spec, q, k, v, _ = bsa_case(bh, sq, sk, d, blk_q, blk_k, causal,
+                                    empty, torch.float32, card)
+        _forward_agrees(bsa_fwd, q, k, v, (spec, causal, d ** -0.5),
+                        KERNEL_NAMES[0], torch.float32)
 
 
-@pytest.mark.parametrize("d", TF32_HEAD_DIMS)
 @pytest.mark.parametrize("bh,sq,sk,causal,dropout", DSPLIT_FLASH_CASES)
 def test_tf32_backward_matches_plain_flash(card, bh, sq, sk, causal,
-                                           dropout, d):
-    """The fp32 flash dK/dV past D 128 (bsa_dkv_tf32_kernel, a role a
-    warp) and dQ (wide_dq_kernel) launch once each and agree with the
-    plain versions within the fp32 limits, dropout keep bits and causal
-    offsets included."""
+                                           dropout):
+    """The fp32 flash dK/dV past D 128 (bsa_dkv_tf32_kernel: 32 kv rows a
+    block, a role a warp, two warps a role and row group splitting the
+    columns and the scores' depth) and dQ (wide_dq_kernel) launch once
+    each and agree with the plain versions within the fp32 limits at each
+    padded head dim 192..512, dropout keep bits and causal offsets
+    included."""
     from paddle_tpu_torch.ops.flash_attention import (KERNEL_NAMES,
                                                       flash_dkv, flash_dq,
                                                       flash_fwd)
 
-    q, k, v, do = flash_inputs(bh, sq, sk, d, torch.float32, card,
-                               seed=sq + sk + d + 3)
-    _backward_agrees(flash_fwd, flash_dq, flash_dkv, q, k, v, do,
-                     (causal, d ** -0.5, dropout, 77), KERNEL_NAMES,
-                     torch.float32)
+    for d in TF32_HEAD_DIMS:
+        q, k, v, do = flash_inputs(bh, sq, sk, d, torch.float32, card,
+                                   seed=sq + sk + d + 3)
+        _backward_agrees(flash_fwd, flash_dq, flash_dkv, q, k, v, do,
+                         (causal, d ** -0.5, dropout, 77), KERNEL_NAMES,
+                         torch.float32)
 
 
-@pytest.mark.parametrize("d", TF32_HEAD_DIMS)
 @pytest.mark.parametrize("bh,sq,sk,blk_q,blk_k,causal,empty",
                          DSPLIT_SPARSE_CASES)
 def test_tf32_backward_matches_plain_sparse(card, bh, sq, sk, blk_q, blk_k,
-                                            causal, empty, d):
+                                            causal, empty):
     """The fp32 block-sparse dK/dV past D 128 (bsa_dkv_tf32_kernel over
     the kv-major lists) and dQ launch once each and agree with the plain
-    versions: a kv block nothing attends and rows that see no column give
-    exact zeros."""
+    versions at each padded head dim 192..512: a kv block nothing attends
+    and rows that see no column give exact zeros."""
     from paddle_tpu_torch.ops.block_sparse_attention import (KERNEL_NAMES,
                                                              bsa_dkv, bsa_dq,
                                                              bsa_fwd)
 
-    spec, q, k, v, do = bsa_case(bh, sq, sk, d, blk_q, blk_k, causal, empty,
-                                 torch.float32, card)
-    _backward_agrees(bsa_fwd, bsa_dq, bsa_dkv, q, k, v, do,
-                     (spec, causal, d ** -0.5), KERNEL_NAMES, torch.float32)
+    for d in TF32_HEAD_DIMS:
+        spec, q, k, v, do = bsa_case(bh, sq, sk, d, blk_q, blk_k, causal,
+                                     empty, torch.float32, card)
+        _backward_agrees(bsa_fwd, bsa_dq, bsa_dkv, q, k, v, do,
+                         (spec, causal, d ** -0.5), KERNEL_NAMES,
+                         torch.float32)
 
 
 @pytest.mark.parametrize("family", ["flash", "sparse"])
@@ -1513,17 +1519,20 @@ TF32_MUTATIONS = {
     # every product plain TF32: the hi x hi term alone
     "tf32_plain": ("attention_tf32.cuh", "mma_3xtf32",
                    "if (kTf32Corrections) {", "if (false) {"),
-    # the forward's scores leave Q K^T's last 64 columns of depth out
+    # the forward's scores leave Q K^T's last 64 columns of depth out (of
+    # each warp's half past 256)
     "fwd_depth": ("attention_tf32.cuh", "bsa_fwd_tf32_kernel",
-                  "scores_3xtf32<BN / 8, D>(", "scores_3xtf32<BN / 8, D - 64>("),
+                  "scores_3xtf32<BN / 8, D / kParts>(",
+                  "scores_3xtf32<BN / 8, D / kParts - 64>("),
     # the second warp of a row group multiplies p by V's first columns
     "fwd_columns": ("attention_tf32.cuh", "bsa_fwd_tf32_kernel",
                     "pv_3xtf32<BN / 8, kCols>(o, s, v_t, BN, c_own);",
                     "pv_3xtf32<BN / 8, kCols>(o, s, v_t, BN, 0);"),
-    # role P's S^T leaves its last 64 columns of depth out
+    # S^T and dP^T leave the last 64 columns of depth out (of each
+    # part's half past 256)
     "dkv_depth": ("attention_tf32.cuh", "bsa_dkv_tf32_kernel",
-                  "scores_3xtf32<R / 8, D>(sc, ks,",
-                  "scores_3xtf32<R / 8, D - 64>(sc, ks,"),
+                  "scores_3xtf32<R / 8, D / kParts>(",
+                  "scores_3xtf32<R / 8, D / kParts - 64>("),
     # the second column part's role dS multiplies ds^T by Q's first
     # columns
     "dkv_columns": ("attention_tf32.cuh", "bsa_dkv_tf32_kernel",
@@ -1537,11 +1546,11 @@ def test_tf32_limits_reject_plain_tf32_a_short_depth_or_offset(
     """The fp32 limits tell the 3xTF32 forward and dK/dV from broken ones:
     the flash source is rebuilt beside copies of attention_tf32.cuh whose
     products are plain TF32 (no correction terms), whose forward scores
-    or dK/dV S^T leave the last 64 columns of depth out, and whose second
-    column part (past D 256) reads V's or Q's first columns; at BH 4, S
-    1024, causal, D 256 and 512, each result a mutant breaks must miss
-    REL_TOL (a column mutant only at D 512, where the parts exist), while
-    the right kernels meet the limits. Prints both readings."""
+    or dK/dV S^T and dP^T leave the last 64 columns of a part's depth
+    out, and whose second column part reads V's (forward) or Q's (dK/dV)
+    first columns; at BH 4, S 1024, causal, D 256 and 512, each result a
+    mutant breaks must miss REL_TOL, while the right kernels meet the
+    limits. Prints both readings."""
     import ctypes
 
     cases = {}
@@ -1566,13 +1575,11 @@ def test_tf32_limits_reject_plain_tf32_a_short_depth_or_offset(
         monkeypatch.setitem(_build._LIBS, "flash_attention",
                             ctypes.CDLL(str(lib)))
         for (out_kind, d), fn in cases.items():
-            if kind.startswith("tf32_") or (
-                    kind.startswith(out_kind + "_")
-                    and (d > 256 or not kind.endswith("_columns"))):
+            if kind.startswith(("tf32_", out_kind + "_")):
                 broken_err[kind, d] = rel_err(fn(), want[out_kind, d])
     print(f"3xTF32 fp32 rel err, right kernels: {right}; broken: "
           f"{broken_err}; limit {REL_TOL[torch.float32]}")
-    assert len(broken_err) == 4 + 2 + 2 + 1 + 1
+    assert len(broken_err) == 4 + 4 * 2
     for err in broken_err.values():
         assert err > REL_TOL[torch.float32]
 
