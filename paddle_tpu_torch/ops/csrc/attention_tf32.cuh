@@ -71,10 +71,10 @@
 // column parts of D / 2 (48..128 registers), and the two warps of a
 // role's row group each sum half the depth of S^T (or dP^T) and add the
 // other's, as the forward's do: the scores are computed once a q tile.
-// The q tiles (8..32 rows, as many ring slots as fit beside K, V, the p
-// tile and the exchange, at least 4) come through the ring as items of
-// their own: Q with its rows' lse (walk step i item 2 i), dO with their
-// delta (item 2 i + 1). Named barriers 1..4 (p written) and 5..8 (p
+// The q tiles come through the ring as items of their own: Q with its
+// rows' lse (walk step i item 2 i), dO with their delta (item 2 i + 1),
+// 32 rows where a walk step's two items fit beside K, V, the p tile and
+// the exchange (D <= 384), else 16, in as many slots as fit (2..6). Named barriers 1..4 (p written) and 5..8 (p
 // read) pair each P warp with its dS warp, 9..12 the two parts' warps of
 // a role and row group. No atomics: the result is deterministic.
 //

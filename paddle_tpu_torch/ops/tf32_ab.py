@@ -63,33 +63,11 @@ VARIANTS = {
          "      mma_3xtf32(o[4 * i + 3], f[j], y0.w, y1.w);\n"
          "    }"),
     ),
-    # the scores' depth loop unrolled twice
-    "scores_unroll2": (("#pragma unroll 1\n  for (int cb = cb0;",
-                        "#pragma unroll 2\n  for (int cb = cb0;"),),
     # dK/dV's q tiles as large as leave 4 ring slots (two walk steps),
-    # not 2: 16 rows at D 320 and 384, 8 past it
+    # not 2: 16 rows at D 320 and 384, 8 past it (32 at D 192 and 256
+    # either way)
     "dkv_slots4": (("constexpr int kDkvTf32Slots = 2;",
                     "constexpr int kDkvTf32Slots = 4;"),),
-    # P's A fragments split where each group of four n-tiles uses them,
-    # not once for all groups
-    "pv_split_late": (
-        ("  Tf32Frag f[KT];\n"
-         "#pragma unroll\n"
-         "  for (int j = 0; j < KT; ++j)\n"
-         "    split_a(f[j], p[j][0], p[j][2], p[j][1], p[j][3]);\n", ""),
-        ("      const float4 y1 = ld_chunk(v, v_rows, r + 1, c0 / 32 + i, g);\n"
-         "      mma_3xtf32(part[0], f[j], y0.x, y1.x);\n"
-         "      mma_3xtf32(part[1], f[j], y0.y, y1.y);\n"
-         "      mma_3xtf32(part[2], f[j], y0.z, y1.z);\n"
-         "      mma_3xtf32(part[3], f[j], y0.w, y1.w);",
-         "      const float4 y1 = ld_chunk(v, v_rows, r + 1, c0 / 32 + i, g);\n"
-         "      Tf32Frag f;\n"
-         "      split_a(f, p[j][0], p[j][2], p[j][1], p[j][3]);\n"
-         "      mma_3xtf32(part[0], f, y0.x, y1.x);\n"
-         "      mma_3xtf32(part[1], f, y0.y, y1.y);\n"
-         "      mma_3xtf32(part[2], f, y0.z, y1.z);\n"
-         "      mma_3xtf32(part[3], f, y0.w, y1.w);"),
-    ),
     # the forward's kv items 16 rows at every head dim
     "fwd_bn16": (("  return fwd_tf32_slots_at<D>(64) >= 3   ? 64\n"
                   "         : fwd_tf32_slots_at<D>(32) >= 3 ? 32",
