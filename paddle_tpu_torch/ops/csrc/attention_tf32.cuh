@@ -93,7 +93,13 @@
 // rate) and the split's instructions keep these kernels from.
 #pragma once
 
-#include "attention_wgmma.cuh"
+// Not attention_wgmma.cuh: a source includes it itself, so that a copy of
+// that header beside the source (the card tests' mutants) is the one it
+// finds.
+#include <type_traits>
+
+#include "attention_tiles.cuh"
+#include "hopper_tiles.cuh"
 
 namespace {
 
@@ -288,17 +294,25 @@ struct TileWalk {
   }
 };
 
-// f(IntC<d>{}) for a padded head dim d these kernels take (192, 256, 320,
-// 384, 448, 512); any other d is refused.
+// f(std::integral_constant<int, d>{}) for a padded head dim d these
+// kernels take (192, 256, ..., 512); any other d is refused.
 template <typename F>
 cudaError_t tf32_head_dim(int d, const F& f) {
   switch (d) {
     case 192:
-      return f(IntC<192>{});
+      return f(std::integral_constant<int, 192>{});
     case 256:
-      return f(IntC<256>{});
+      return f(std::integral_constant<int, 256>{});
+    case 320:
+      return f(std::integral_constant<int, 320>{});
+    case 384:
+      return f(std::integral_constant<int, 384>{});
+    case 448:
+      return f(std::integral_constant<int, 448>{});
+    case 512:
+      return f(std::integral_constant<int, 512>{});
   }
-  return dsplit_head_dim(d, f);
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------- forward

@@ -122,6 +122,18 @@ __device__ __forceinline__ uint32_t dropout_key(const Dropout& drop, int bh) {
   return drop.seed * 0xC2B2AE3Du + (uint32_t)bh * 0x27D4EB2Fu;
 }
 
+// Row reductions over the 4 lanes that hold one row of an mma (or wgmma)
+// accumulator.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 __device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)

@@ -32,7 +32,9 @@
 // TMA (hopper_tiles.cuh's layout contract: 128-byte swizzle, column
 // blocks of 64). Every product is wgmma: operands in shared memory, or p
 // / ds re-packed from accumulators as register A fragments (rounded to
-// bf16, as the reference casts them).
+// bf16, as the reference casts them). These are the bf16 kernels: fp32
+// past D 128 runs the 3xTF32 forward and dK/dV of attention_tf32.cuh and
+// the FMA dQ of wide_attention.cuh.
 #pragma once
 
 #include "attention_tiles.cuh"
@@ -69,17 +71,6 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&pa)[NT / 2][4],
     pa[kk][2] = pack_bf16(v[2 * kk + 1][0], v[2 * kk + 1][1]);
     pa[kk][3] = pack_bf16(v[2 * kk + 1][2], v[2 * kk + 1][3]);
   }
-}
-
-// Row reductions over the 4 lanes that hold one accumulator row.
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 template <int D>

@@ -57,6 +57,7 @@
 // (the flash kernels' design: dQ and dK/dV below, the forward in
 // attention_wgmma.cuh); fp32 on the FMA units.
 
+#include "attention_wgmma.cuh"
 #include "attention_tf32.cuh"
 #include "wide_attention.cuh"
 

@@ -71,6 +71,7 @@
 // attention_tiles.cuh, the bf16 wgmma tile steps in attention_wgmma.cuh,
 // both shared with the block-sparse kernels.
 
+#include "attention_wgmma.cuh"
 #include "attention_tf32.cuh"
 #include "wide_attention.cuh"
 

@@ -1576,7 +1576,8 @@ def test_tf32_limits_reject_plain_tf32_a_short_depth_or_offset(
                             ctypes.CDLL(str(lib)))
         for (out_kind, d), fn in cases.items():
             if kind.startswith(("tf32_", out_kind + "_")):
-                broken_err[kind, d] = rel_err(fn(), want[out_kind, d])
+                broken_err[kind, out_kind, d] = rel_err(fn(),
+                                                        want[out_kind, d])
     print(f"3xTF32 fp32 rel err, right kernels: {right}; broken: "
           f"{broken_err}; limit {REL_TOL[torch.float32]}")
     assert len(broken_err) == 4 + 4 * 2
