@@ -1189,13 +1189,22 @@ def test_dsplit_forward_matches_plain_flash(card, bh, sq, sk, causal,
     """The bf16 flash forward past D 256 (bsa_fwd_dsplit_wgmma_kernel,
     whose two warpgroups split D: 3 + 2, 3 + 3, 4 + 3, 4 + 4 column blocks
     of 64) launches once and agrees with the plain version, dropout keep
-    bits and causal offsets included."""
+    bits and causal offsets included; and so does the fp32 forward
+    (bsa_fwd_tf32_kernel: 64 q rows a block, two warps a row group
+    splitting the output's columns and the scores' depth) at d, and at
+    192 and 256 beside 320, within the fp32 limits."""
     from paddle_tpu_torch.ops.flash_attention import KERNEL_NAMES, flash_fwd
 
     q, k, v, _ = flash_inputs(bh, sq, sk, d, torch.bfloat16, card,
                               seed=sq + sk + d)
     _forward_agrees(flash_fwd, q, k, v, (causal, d ** -0.5, dropout, 77),
                     KERNEL_NAMES[0], torch.bfloat16)
+    for dd in _tf32_dims(d):
+        q, k, v, _ = flash_inputs(bh, sq, sk, dd, torch.float32, card,
+                                  seed=sq + sk + dd + 2)
+        _forward_agrees(flash_fwd, q, k, v,
+                        (causal, dd ** -0.5, dropout, 77), KERNEL_NAMES[0],
+                        torch.float32)
 
 
 @pytest.mark.parametrize("d", [320, 384, 448, 512])
@@ -1205,7 +1214,9 @@ def test_dsplit_forward_matches_plain_sparse(card, bh, sq, sk, blk_q,
                                              blk_k, causal, empty, d):
     """The bf16 block-sparse forward past D 256
     (bsa_fwd_dsplit_wgmma_kernel over the q-major lists) launches once and
-    agrees with the plain version, rows that see no column included."""
+    agrees with the plain version, rows that see no column included; and
+    so does the fp32 forward (bsa_fwd_tf32_kernel) at d, and at 192 and
+    256 beside 320, within the fp32 limits."""
     from paddle_tpu_torch.ops.block_sparse_attention import (KERNEL_NAMES,
                                                              bsa_fwd)
 
@@ -1213,6 +1224,11 @@ def test_dsplit_forward_matches_plain_sparse(card, bh, sq, sk, blk_q,
                                 torch.bfloat16, card)
     _forward_agrees(bsa_fwd, q, k, v, (spec, causal, d ** -0.5),
                     KERNEL_NAMES[0], torch.bfloat16)
+    for dd in _tf32_dims(d):
+        spec, q, k, v, _ = bsa_case(bh, sq, sk, dd, blk_q, blk_k, causal,
+                                    empty, torch.float32, card)
+        _forward_agrees(bsa_fwd, q, k, v, (spec, causal, dd ** -0.5),
+                        KERNEL_NAMES[0], torch.float32)
 
 
 # bsa_fwd_dsplit_wgmma_kernel broken two ways: kind -> (file, kernel, a
@@ -1306,7 +1322,10 @@ def test_dsplit_backward_matches_plain_flash(card, bh, sq, sk, causal,
     whose two warpgroups split dQ's column blocks, and
     bsa_dkv_dsplit_wgmma_kernel, whose blocks split dK's and dV's) launch
     once each and agree with the plain versions, dropout keep bits and
-    causal offsets included."""
+    causal offsets included; and so do the fp32 dK/dV (bsa_dkv_tf32_kernel:
+    32 kv rows a block, a role a warp, two warps a role and row group
+    splitting the columns and the scores' depth) and dQ (wide_dq_kernel)
+    at d, and at 192 and 256 beside 320, within the fp32 limits."""
     from paddle_tpu_torch.ops.flash_attention import (KERNEL_NAMES,
                                                       flash_dkv, flash_dq,
                                                       flash_fwd)
@@ -1316,6 +1335,12 @@ def test_dsplit_backward_matches_plain_flash(card, bh, sq, sk, causal,
     _backward_agrees(flash_fwd, flash_dq, flash_dkv, q, k, v, do,
                      (causal, d ** -0.5, dropout, 77), KERNEL_NAMES,
                      torch.bfloat16)
+    for dd in _tf32_dims(d):
+        q, k, v, do = flash_inputs(bh, sq, sk, dd, torch.float32, card,
+                                   seed=sq + sk + dd + 3)
+        _backward_agrees(flash_fwd, flash_dq, flash_dkv, q, k, v, do,
+                         (causal, dd ** -0.5, dropout, 77), KERNEL_NAMES,
+                         torch.float32)
 
 
 @pytest.mark.parametrize("d", [320, 384, 448, 512])
@@ -1326,7 +1351,9 @@ def test_dsplit_backward_matches_plain_sparse(card, bh, sq, sk, blk_q,
     """The bf16 block-sparse dQ and dK/dV past D 256 (the D-split kernels
     over the q-major and kv-major lists) launch once each and agree with
     the plain versions: rows that see no column and a kv block nothing
-    attends give exact zeros."""
+    attends give exact zeros; and so do the fp32 dK/dV
+    (bsa_dkv_tf32_kernel) and dQ at d, and at 192 and 256 beside 320,
+    within the fp32 limits."""
     from paddle_tpu_torch.ops.block_sparse_attention import (KERNEL_NAMES,
                                                              bsa_dkv, bsa_dq,
                                                              bsa_fwd)
@@ -1335,6 +1362,12 @@ def test_dsplit_backward_matches_plain_sparse(card, bh, sq, sk, blk_q,
                                  torch.bfloat16, card)
     _backward_agrees(bsa_fwd, bsa_dq, bsa_dkv, q, k, v, do,
                      (spec, causal, d ** -0.5), KERNEL_NAMES, torch.bfloat16)
+    for dd in _tf32_dims(d):
+        spec, q, k, v, do = bsa_case(bh, sq, sk, dd, blk_q, blk_k, causal,
+                                     empty, torch.float32, card)
+        _backward_agrees(bsa_fwd, bsa_dq, bsa_dkv, q, k, v, do,
+                         (spec, causal, dd ** -0.5), KERNEL_NAMES,
+                         torch.float32)
 
 
 # the D-split backward broken four ways: kind -> (file, kernel, a line of
@@ -1368,8 +1401,9 @@ def test_dsplit_backward_limit_rejects_a_short_depth_or_offset(
     blocks, whose dK/dV role P leaves the last 64 columns out of S^T, and
     whose second dK/dV part multiplies ds^T by Q's first column blocks; at
     flash's wide shape (BH 16, S 1024, causal) at D 512 and D 320 each
-    result must miss REL_TOL, while the right kernels meet it. Prints both
-    readings."""
+    result must miss REL_TOL, while the right kernels meet it; then the
+    3xTF32 mutants (_tf32_mutants_miss) must miss the fp32 limits. Prints
+    the readings."""
     import ctypes
 
     cases = {}
@@ -1401,115 +1435,19 @@ def test_dsplit_backward_limit_rejects_a_short_depth_or_offset(
     assert len(broken_err) == 2 * len(DSPLIT_BWD_MUTATIONS)
     for err in broken_err.values():
         assert err > REL_TOL[torch.bfloat16]
-
-# bsa_fwd_tf32_kernel and bsa_dkv_tf32_kernel (attention_tf32.cuh): the
-# fp32 forward and dK/dV at padded D 192..512, 3xTF32 on the tensor cores.
-# Each case runs at every head dim in one test: the cases add few test
-# ids to the suite.
-TF32_HEAD_DIMS = [192, 256, 320, 384, 448, 512]
+    _tf32_mutants_miss(card, tmp_path / "tf32", monkeypatch)
 
 
-@pytest.mark.parametrize("bh,sq,sk,causal,dropout", DSPLIT_FLASH_CASES)
-def test_tf32_forward_matches_plain_flash(card, bh, sq, sk, causal,
-                                          dropout):
-    """The fp32 flash forward past D 128 (bsa_fwd_tf32_kernel: 64 q rows
-    a block, two warps a row group splitting the output's columns and the
-    scores' depth) launches once and agrees with the plain version within
-    the fp32 limits at each padded head dim 192..512, dropout keep bits,
-    causal offsets, sq > sk and an odd count of 64-row tiles included."""
-    from paddle_tpu_torch.ops.flash_attention import KERNEL_NAMES, flash_fwd
-
-    for d in TF32_HEAD_DIMS:
-        q, k, v, _ = flash_inputs(bh, sq, sk, d, torch.float32, card,
-                                  seed=sq + sk + d + 2)
-        _forward_agrees(flash_fwd, q, k, v, (causal, d ** -0.5, dropout, 77),
-                        KERNEL_NAMES[0], torch.float32)
-
-
-@pytest.mark.parametrize("bh,sq,sk,blk_q,blk_k,causal,empty",
-                         DSPLIT_SPARSE_CASES)
-def test_tf32_forward_matches_plain_sparse(card, bh, sq, sk, blk_q, blk_k,
-                                           causal, empty):
-    """The fp32 block-sparse forward past D 128 (bsa_fwd_tf32_kernel over
-    the q-major lists) launches once and agrees with the plain version at
-    each padded head dim 192..512, rows that see no column included (0,
-    lse -inf)."""
-    from paddle_tpu_torch.ops.block_sparse_attention import (KERNEL_NAMES,
-                                                             bsa_fwd)
-
-    for d in TF32_HEAD_DIMS:
-        spec, q, k, v, _ = bsa_case(bh, sq, sk, d, blk_q, blk_k, causal,
-                                    empty, torch.float32, card)
-        _forward_agrees(bsa_fwd, q, k, v, (spec, causal, d ** -0.5),
-                        KERNEL_NAMES[0], torch.float32)
-
-
-@pytest.mark.parametrize("bh,sq,sk,causal,dropout", DSPLIT_FLASH_CASES)
-def test_tf32_backward_matches_plain_flash(card, bh, sq, sk, causal,
-                                           dropout):
-    """The fp32 flash dK/dV past D 128 (bsa_dkv_tf32_kernel: 32 kv rows a
-    block, a role a warp, two warps a role and row group splitting the
-    columns and the scores' depth) and dQ (wide_dq_kernel) launch once
-    each and agree with the plain versions within the fp32 limits at each
-    padded head dim 192..512, dropout keep bits and causal offsets
-    included."""
-    from paddle_tpu_torch.ops.flash_attention import (KERNEL_NAMES,
-                                                      flash_dkv, flash_dq,
-                                                      flash_fwd)
-
-    for d in TF32_HEAD_DIMS:
-        q, k, v, do = flash_inputs(bh, sq, sk, d, torch.float32, card,
-                                   seed=sq + sk + d + 3)
-        _backward_agrees(flash_fwd, flash_dq, flash_dkv, q, k, v, do,
-                         (causal, d ** -0.5, dropout, 77), KERNEL_NAMES,
-                         torch.float32)
-
-
-@pytest.mark.parametrize("bh,sq,sk,blk_q,blk_k,causal,empty",
-                         DSPLIT_SPARSE_CASES)
-def test_tf32_backward_matches_plain_sparse(card, bh, sq, sk, blk_q, blk_k,
-                                            causal, empty):
-    """The fp32 block-sparse dK/dV past D 128 (bsa_dkv_tf32_kernel over
-    the kv-major lists) and dQ launch once each and agree with the plain
-    versions at each padded head dim 192..512: a kv block nothing attends
-    and rows that see no column give exact zeros."""
-    from paddle_tpu_torch.ops.block_sparse_attention import (KERNEL_NAMES,
-                                                             bsa_dkv, bsa_dq,
-                                                             bsa_fwd)
-
-    for d in TF32_HEAD_DIMS:
-        spec, q, k, v, do = bsa_case(bh, sq, sk, d, blk_q, blk_k, causal,
-                                     empty, torch.float32, card)
-        _backward_agrees(bsa_fwd, bsa_dq, bsa_dkv, q, k, v, do,
-                         (spec, causal, d ** -0.5), KERNEL_NAMES,
-                         torch.float32)
-
-
-@pytest.mark.parametrize("family", ["flash", "sparse"])
-@pytest.mark.parametrize("d", [256, 512])
-def test_tf32_dkv_is_deterministic(card, family, d):
-    """bsa_dkv_tf32_kernel keeps the reference's split from dQ and uses no
-    atomics: two runs give the same bits (flash with causal dropout,
-    block-sparse on a BigBird-like pattern with an empty kv block)."""
-    from paddle_tpu_torch.ops import block_sparse_attention as bsa
-    from paddle_tpu_torch.ops import flash_attention as fa
-
-    q, k, v, do = flash_inputs(4, 1024, 1024, d, torch.float32, card, d)
-    if family == "flash":
-        args = (True, d ** -0.5, 0.1, 5)
-        fwd, dkv = fa.flash_fwd, fa.flash_dkv
-    else:
-        mask = bigbird_like(8, seed=d)
-        mask[:, 3] = False
-        args = (bsa.block_mask_spec(mask, 1024, 1024, False), False,
-                d ** -0.5)
-        fwd, dkv = bsa.bsa_fwd, bsa.bsa_dkv
-    out, lse = fwd(q, k, v, *args, impl="torch")
-    delta = (do * out).sum(-1)
-    first = dkv(q, k, v, do, lse, delta, *args)
-    second = dkv(q, k, v, do, lse, delta, *args)
-    for a, b in zip(first, second):
-        assert torch.equal(a, b)
+# bsa_fwd_tf32_kernel and bsa_dkv_tf32_kernel (attention_tf32.cuh), the
+# fp32 forward and dK/dV at padded D 192..512 (3xTF32 on the tensor
+# cores), are held by checks in the D-split tests' cases, the determinism
+# and dispatch tests and the D-split backward's limit test, not by test
+# ids of their own: the count of ids moves how `pytest -n` (xdist) cuts
+# the suite into chunks, and with it which worker runs what.
+def _tf32_dims(d):
+    """The fp32 head dims a D-split case at head dim d also runs: d, and
+    192 and 256 beside the first, 320."""
+    return (192, 256, d) if d == 320 else (d,)
 
 
 # the 3xTF32 kernels broken: kind -> (file, function, a line of it, the
@@ -1541,8 +1479,7 @@ TF32_MUTATIONS = {
 }
 
 
-def test_tf32_limits_reject_plain_tf32_a_short_depth_or_offset(
-        card, tmp_path, monkeypatch):
+def _tf32_mutants_miss(card, out_dir, monkeypatch):
     """The fp32 limits tell the 3xTF32 forward and dK/dV from broken ones:
     the flash source is rebuilt beside copies of attention_tf32.cuh whose
     products are plain TF32 (no correction terms), whose forward scores
@@ -1565,7 +1502,8 @@ def test_tf32_limits_reject_plain_tf32_a_short_depth_or_offset(
     right = {case: rel_err(fn(), want[case]) for case, fn in cases.items()}
     for (kind, d), fn in cases.items():
         _close(fn(), want[kind, d], torch.float32)
-    procs = {kind: _build_mutant(kind, tmp_path / kind, TF32_MUTATIONS,
+    out_dir.mkdir()
+    procs = {kind: _build_mutant(kind, out_dir / kind, TF32_MUTATIONS,
                                  "flash_attention.cu")
              for kind in TF32_MUTATIONS}
     broken_err = {}
@@ -1578,6 +1516,7 @@ def test_tf32_limits_reject_plain_tf32_a_short_depth_or_offset(
             if kind.startswith(("tf32_", out_kind + "_")):
                 broken_err[kind, out_kind, d] = rel_err(fn(),
                                                         want[out_kind, d])
+    _build._LIBS.pop("flash_attention")  # the right library again
     print(f"3xTF32 fp32 rel err, right kernels: {right}; broken: "
           f"{broken_err}; limit {REL_TOL[torch.float32]}")
     assert len(broken_err) == 4 + 4 * 2
@@ -1622,8 +1561,7 @@ def _ran(kernel: str, names) -> bool:
     (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.bfloat16, 192),
     (torch.bfloat16, 256), (torch.bfloat16, 320), (torch.bfloat16, 512),
     (torch.float32, 128), (torch.float32, 256), (torch.bfloat16, 384),
-    (torch.bfloat16, 448), (torch.float32, 192), (torch.float32, 320),
-    (torch.float32, 512)])
+    (torch.bfloat16, 448)])
 def test_forward_dispatch_takes_the_wgmma_list_kernel(card, family, dtype,
                                                        d):
     """The forward's dispatch: bsa_fwd_wgmma_kernel runs the bf16
@@ -1631,45 +1569,49 @@ def test_forward_dispatch_takes_the_wgmma_list_kernel(card, family, dtype,
     192 and 256; fa_fwd_wgmma_kernel the bf16 flash forward at 64 and
     128; bsa_fwd_dsplit_wgmma_kernel the bf16 forward of both families at
     320, 384, 448 and 512; bsa_fwd_tf32_kernel the fp32 forward of both
-    families at 192..512; fp32 at 64 and 128 each family's FMA kernel.
-    One launch, counted, within the limits."""
+    families past 128 (the fp32 256 case checks 192, 256, 320 and 512);
+    fp32 at 64 and 128 each family's FMA kernel. One launch, counted,
+    within the limits."""
     from paddle_tpu_torch.ops.block_sparse_attention import (
         KERNEL_NAMES as BSA_NAMES, bsa_fwd)
     from paddle_tpu_torch.ops.flash_attention import (
         KERNEL_NAMES as FA_NAMES, flash_fwd)
 
-    if family == "flash":
-        q, k, v, _ = flash_inputs(2, 256, 256, d, dtype, card, seed=d)
-        args = (True, d ** -0.5, 0.0, 0)
-        fwd, name = flash_fwd, FA_NAMES[0]
-    else:
-        spec, q, k, v, _ = bsa_case(2, 512, 512, d, 128, 128, False, None,
-                                    dtype, card)
-        args = (spec, False, d ** -0.5)
-        fwd, name = bsa_fwd, BSA_NAMES[0]
-    fwd(q, k, v, *args)  # builds and loads the kernels first
-    _build.reset_launches()
-    fwd(q, k, v, *args)
-    assert _build.launches() == {name: 1}
-    ran = _device_kernels(lambda: fwd(q, k, v, *args))
-    bf16 = dtype == torch.bfloat16
-    if bf16 and d > 256:
-        want = "bsa_fwd_dsplit_wgmma_kernel"
-    elif bf16 and d <= 256 and (family == "sparse" or d > 128):
-        want = "bsa_fwd_wgmma_kernel"
-    elif bf16 and d <= 128:
-        want = "fa_fwd_wgmma_kernel"
-    elif d > 128:
-        want = "bsa_fwd_tf32_kernel"
-    else:
-        want = "fa_fwd_kernel" if family == "flash" else "bsa_fwd_kernel"
-    assert _ran(want, ran), (want, ran)
-    assert (want == "bsa_fwd_wgmma_kernel"
-            or not _ran("bsa_fwd_wgmma_kernel", ran))
-    got, got_lse = fwd(q, k, v, *args)
-    ref, ref_lse = fwd(q, k, v, *args, impl="torch")
-    _close(got, ref, dtype)
-    _close(got_lse, ref_lse, torch.float32)
+    tf32 = dtype == torch.float32 and d == 256
+    for d in (192, 256, 320, 512) if tf32 else (d,):
+        if family == "flash":
+            q, k, v, _ = flash_inputs(2, 256, 256, d, dtype, card, seed=d)
+            args = (True, d ** -0.5, 0.0, 0)
+            fwd, name = flash_fwd, FA_NAMES[0]
+        else:
+            spec, q, k, v, _ = bsa_case(2, 512, 512, d, 128, 128, False,
+                                        None, dtype, card)
+            args = (spec, False, d ** -0.5)
+            fwd, name = bsa_fwd, BSA_NAMES[0]
+        fwd(q, k, v, *args)  # builds and loads the kernels first
+        _build.reset_launches()
+        fwd(q, k, v, *args)
+        assert _build.launches() == {name: 1}
+        ran = _device_kernels(lambda: fwd(q, k, v, *args))
+        bf16 = dtype == torch.bfloat16
+        if bf16 and d > 256:
+            want = "bsa_fwd_dsplit_wgmma_kernel"
+        elif bf16 and d <= 256 and (family == "sparse" or d > 128):
+            want = "bsa_fwd_wgmma_kernel"
+        elif bf16 and d <= 128:
+            want = "fa_fwd_wgmma_kernel"
+        elif d > 128:
+            want = "bsa_fwd_tf32_kernel"
+        else:
+            want = ("fa_fwd_kernel" if family == "flash"
+                    else "bsa_fwd_kernel")
+        assert _ran(want, ran), (want, ran)
+        assert (want == "bsa_fwd_wgmma_kernel"
+                or not _ran("bsa_fwd_wgmma_kernel", ran))
+        got, got_lse = fwd(q, k, v, *args)
+        ref, ref_lse = fwd(q, k, v, *args, impl="torch")
+        _close(got, ref, dtype)
+        _close(got_lse, ref_lse, torch.float32)
 
 
 def _backward_case(family, dtype, d, device):
@@ -1699,8 +1641,7 @@ def _backward_case(family, dtype, d, device):
 @pytest.mark.parametrize("dtype,d", [
     (torch.bfloat16, 128), (torch.bfloat16, 192), (torch.bfloat16, 256),
     (torch.bfloat16, 512), (torch.float32, 256), (torch.bfloat16, 320),
-    (torch.bfloat16, 384), (torch.bfloat16, 448), (torch.float32, 192),
-    (torch.float32, 320), (torch.float32, 512)])
+    (torch.bfloat16, 384), (torch.bfloat16, 448)])
 def test_backward_dispatch_takes_the_wgmma_list_kernels(card, family, dtype,
                                                         d):
     """The backward's dispatch: bf16 at padded D 192 and 256 runs
@@ -1708,32 +1649,36 @@ def test_backward_dispatch_takes_the_wgmma_list_kernels(card, family, dtype,
     bf16 at 320, 384, 448 and 512 bsa_dq_dsplit_wgmma_kernel and
     bsa_dkv_dsplit_wgmma_kernel in both families; fp32 past 128
     wide_dq_kernel (FMA) and bsa_dkv_tf32_kernel (3xTF32) in both
-    families; bf16 at 128 on each family's own wgmma kernels. One launch
-    each, counted, within the limits."""
-    dq, dkv, names = _backward_case(family, dtype, d, card)
-    bf16 = dtype == torch.bfloat16
-    if bf16 and d in (192, 256):
-        want = ("bsa_dq_wgmma_kernel", "bsa_dkv_split_wgmma_kernel")
-    elif bf16 and d > 256:
-        want = ("bsa_dq_dsplit_wgmma_kernel", "bsa_dkv_dsplit_wgmma_kernel")
-    elif d > 128:
-        want = ("wide_dq_kernel", "bsa_dkv_tf32_kernel")
-    elif family == "flash":
-        want = ("fa_dq_wgmma_kernel", "fa_dkv_wgmma_kernel")
-    else:
-        want = ("bsa_dq_wgmma_kernel", "bsa_dkv_wgmma_kernel")
-    for call, name, kernel in zip((dq, dkv), names[1:], want):
-        call()  # builds and loads the kernels first
-        _build.reset_launches()
-        call()
-        assert _build.launches() == {name: 1}
-        ran = _device_kernels(call)
-        assert _ran(kernel, ran), (kernel, ran)
-        got, ref = call(), call(impl="torch")
-        if torch.is_tensor(got):
-            got, ref = (got,), (ref,)
-        for a, b in zip(got, ref):
-            _close(a, b, dtype)
+    families (the fp32 256 case checks 192, 256, 320 and 512); bf16 at
+    128 on each family's own wgmma kernels. One launch each, counted,
+    within the limits."""
+    tf32 = dtype == torch.float32 and d == 256
+    for d in (192, 256, 320, 512) if tf32 else (d,):
+        dq, dkv, names = _backward_case(family, dtype, d, card)
+        bf16 = dtype == torch.bfloat16
+        if bf16 and d in (192, 256):
+            want = ("bsa_dq_wgmma_kernel", "bsa_dkv_split_wgmma_kernel")
+        elif bf16 and d > 256:
+            want = ("bsa_dq_dsplit_wgmma_kernel",
+                    "bsa_dkv_dsplit_wgmma_kernel")
+        elif d > 128:
+            want = ("wide_dq_kernel", "bsa_dkv_tf32_kernel")
+        elif family == "flash":
+            want = ("fa_dq_wgmma_kernel", "fa_dkv_wgmma_kernel")
+        else:
+            want = ("bsa_dq_wgmma_kernel", "bsa_dkv_wgmma_kernel")
+        for call, name, kernel in zip((dq, dkv), names[1:], want):
+            call()  # builds and loads the kernels first
+            _build.reset_launches()
+            call()
+            assert _build.launches() == {name: 1}
+            ran = _device_kernels(call)
+            assert _ran(kernel, ran), (kernel, ran)
+            got, ref = call(), call(impl="torch")
+            if torch.is_tensor(got):
+                got, ref = (got,), (ref,)
+            for a, b in zip(got, ref):
+                _close(a, b, dtype)
 
 
 @pytest.mark.parametrize("family", ["flash", "sparse"])
@@ -1743,26 +1688,27 @@ def test_split_dkv_is_deterministic(card, family, d):
     bsa_dkv_dsplit_wgmma_kernel (D 320, 512) keep the reference's split
     from dQ and use no atomics: two runs give the same bits (flash with
     causal dropout, block-sparse on a BigBird-like pattern with an empty
-    kv block)."""
+    kv block); so does the fp32 bsa_dkv_tf32_kernel at D 256 and 512."""
     from paddle_tpu_torch.ops import block_sparse_attention as bsa
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, do = flash_inputs(4, 1024, 1024, d, torch.bfloat16, card, d)
-    if family == "flash":
-        args = (True, d ** -0.5, 0.1, 5)
-        fwd, dkv = fa.flash_fwd, fa.flash_dkv
-    else:
-        mask = bigbird_like(8, seed=d)
-        mask[:, 3] = False
-        args = (bsa.block_mask_spec(mask, 1024, 1024, False), False,
-                d ** -0.5)
-        fwd, dkv = bsa.bsa_fwd, bsa.bsa_dkv
-    out, lse = fwd(q, k, v, *args, impl="torch")
-    delta = (do.float() * out.float()).sum(-1)
-    first = dkv(q, k, v, do, lse, delta, *args)
-    second = dkv(q, k, v, do, lse, delta, *args)
-    for a, b in zip(first, second):
-        assert torch.equal(a, b)
+    for dtype in (torch.bfloat16, torch.float32)[:1 + (d in (256, 512))]:
+        q, k, v, do = flash_inputs(4, 1024, 1024, d, dtype, card, d)
+        if family == "flash":
+            args = (True, d ** -0.5, 0.1, 5)
+            fwd, dkv = fa.flash_fwd, fa.flash_dkv
+        else:
+            mask = bigbird_like(8, seed=d)
+            mask[:, 3] = False
+            args = (bsa.block_mask_spec(mask, 1024, 1024, False), False,
+                    d ** -0.5)
+            fwd, dkv = bsa.bsa_fwd, bsa.bsa_dkv
+        out, lse = fwd(q, k, v, *args, impl="torch")
+        delta = (do.float() * out.float()).sum(-1)
+        first = dkv(q, k, v, do, lse, delta, *args)
+        second = dkv(q, k, v, do, lse, delta, *args)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 # bsa_dkv_split_wgmma_kernel broken two ways: kind -> (file, function, a
