@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
 card.
 
-    python3 chip_smoke.py [--parent DIR] [--only wide]
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, each printing one JSON line (``{"phase": ...}``):
 
@@ -112,7 +112,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    against the plain versions, as the yardstick. With ``--parent DIR``,
    ``wide_parent`` times that tree's entry points at bf16 D 192, 256 and
    512 and fp32 D 256 and 512 beside this tree's (parent, this, this,
-   parent). ``--only wide`` builds and runs this phase alone.
+   parent).
 11. ``layer_norm`` — the LayerNorm kernel against its plain version at
    [8192, 2048] and [16, 2048], fp32 and bf16, with
    ``torch.nn.functional.layer_norm`` as the yardstick; then
@@ -2241,11 +2241,16 @@ def phase_train(device, launches_of, reset_launches, cfg=None, batch=8,
 
 def kernel_entry(name, kernel, source, replaces, launches, res,
                  library_ms):
-    return {"name": name, "kernel": kernel, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"], "library_ms": library_ms}
+    """One entry of the ``kernels`` line; a kernel on TF32 tensor cores
+    also carries ``tc_bound_ms`` beside ``bound_ms``."""
+    entry = {"name": name, "kernel": kernel, "route": "cuda",
+             "source": source, "replaces": replaces, "launches": launches,
+             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+             "bound_by": res["bound_by"], "library_ms": library_ms}
+    if "tc_bound_ms" in res:
+        entry["tc_bound_ms"] = res["tc_bound_ms"]
+    return entry
 
 
 def main() -> int:
@@ -2257,9 +2262,6 @@ def main() -> int:
                          "commit's git archive): the sparse and wide phases "
                          "time its bf16 block-sparse kernels and wide "
                          "forwards beside this tree's")
-    ap.add_argument("--only", choices=("wide",), default=None,
-                    help="build, then run this phase alone; prints no "
-                         "kernels line and no last line")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2285,9 +2287,6 @@ def main() -> int:
                 for src in _build.KERNEL_SOURCES})
 
     timer = Timer(device)
-    if opts.only == "wide":
-        phase_wide(device, peaks, timer, opts.parent)
-        return 0
     kernel = phase_kernel(device, peaks, timer)
     phase_kernel_geometry(device, peaks, timer)
     decode, decode_launches = phase_decode_batch(

@@ -50,33 +50,39 @@
 //           four n-tiles are one chunk of V's row (n-tile 4 i + u, column
 //           n is 32 i + 4 n + u); store_rows undoes that order.
 //
-// Forward: a block owns 64 q rows and 8 warps, 4 row groups of 16 rows
-// by 2 column parts: a warp's accumulator holds D / 2 columns of its 16
-// rows (48..128 registers a thread). Q stays in shared memory (loaded
-// once by TMA); K and V come through a ring of items of their own (K of
-// walk step t item 2 t, V item 2 t + 1) of 16..64 kv rows, as many slots
-// as fit beside Q and the exchange (2..4): thread 0 refills a slot once
-// every warp has released it. S = Q K^T is computed once a kv tile: each
-// of a row group's two warps sums half the depth and adds the other's
-// partial, through shared memory over a named barrier of the two
-// (add_partner); never once a 64-column slice, as the FMA kernel did
-// (D / 64 times).
+// Column parts. The warps of a row group split the output's columns into
+// parts of whole 32-column blocks, as even as blocks allow (D 448 in 4:
+// 3, 4, 3, 4 blocks), and the scores' depth the same way: each warp sums
+// the scores over its part of the depth, and every warp of the group adds
+// all the parts' partials in part order, through shared memory over a
+// named barrier of the group (add_parts): the scores are computed once a
+// tile, never once a 64-column slice, as the FMA kernels did (D / 64
+// times). 2 parts, or 4 where ptxas spilled with 2 (the forward past
+// D 256, dK/dV past 384: an accumulator of D / 2 columns beside the
+// scores, the ring's fragments and the split took more than 255
+// registers; 432 bytes spilled in dK/dV at D 512).
 //
-// dK/dV: a block owns 32 kv rows (K and V resident, loaded once by TMA)
-// and 8 warps that split the work by role, as
+// Forward: a block has 8 warps and owns 64 q rows, 4 row groups of 16 by
+// 2 parts, to D 256, and 32 q rows, 2 row groups by 4 parts, past it.
+// Q stays in shared memory (loaded once by TMA); K and V come through a
+// ring of items of their own (K of walk step t item 2 t, V item 2 t + 1)
+// of 16..64 kv rows, as many slots as fit beside Q and the exchange
+// (3..5): thread 0 refills a slot once every warp has released it.
+//
+// dK/dV: a block has 8 warps that split the work by role, as
 // bsa_dkv_split_wgmma_kernel does: P (S^T = K Q^T, p from lse, handed to
 // dS through shared memory in the accumulator's lane layout, then dV +=
 // p_drop^T dO) and dS (dP^T = V dO^T, ds^T from p and delta, then dK +=
-// ds^T Q); a role's four warps are 2 row groups of 16 kv rows by 2
-// column parts of D / 2 (48..128 registers), and the two warps of a
-// role's row group each sum half the depth of S^T (or dP^T) and add the
-// other's, as the forward's do: the scores are computed once a q tile.
-// The q tiles come through the ring as items of their own: Q with its
-// rows' lse (walk step i item 2 i), dO with their delta (item 2 i + 1),
-// 32 rows where a walk step's two items fit beside K, V, the p tile and
-// the exchange (D <= 384), else 16, in as many slots as fit (2..6). Named barriers 1..4 (p written) and 5..8 (p
-// read) pair each P warp with its dS warp, 9..12 the two parts' warps of
-// a role and row group. No atomics: the result is deterministic.
+// ds^T Q). It owns 32 kv rows, a role's four warps 2 row groups of 16 by
+// 2 parts, to D 384, and 16 kv rows, one row group by 4 parts, past it
+// (K and V resident, loaded once by TMA). The q tiles come through the
+// ring as items of their own: Q with its rows' lse (walk step i item
+// 2 i), dO with their delta (item 2 i + 1), of 32 rows where a walk
+// step's two items fit beside K, V, the p tile and the exchange (every
+// D), in as many slots as fit (2..6). Named barriers 1..4 (p written)
+// and 5..8 (p read) pair each P warp with its dS warp, 9..12 the parts'
+// warps of a role and row group. No atomics: the result is
+// deterministic.
 //
 // Both walk the lists as the wgmma kernels do: under causal the forward's
 // walk ends at the first kv tile past the block's last column (lists
@@ -96,22 +102,41 @@
 // Not attention_wgmma.cuh: a source includes it itself, so that a copy of
 // that header beside the source (the card tests' mutants) is the one it
 // finds.
-#include <type_traits>
-
 #include "attention_tiles.cuh"
 #include "hopper_tiles.cuh"
 
 namespace {
 
 constexpr int kTf32Threads = 256;     // 8 warps
-// a row group's warps split the output's columns (and the scores' depth)
-constexpr int kTf32Parts = 2;
 constexpr int kMaxBlockSmem = 232448;  // what a block may take
 
-// False makes every product plain TF32 (a_hi b_hi alone). The card tests
-// build a copy so, to show the two corrections are what meets the fp32
-// limits.
-constexpr bool kTf32Corrections = true;
+// The column parts of D a row group's warps split (the header).
+template <int D>
+__host__ __device__ constexpr int fwd_tf32_parts() {
+  return D <= 256 ? 2 : 4;
+}
+template <int D>
+__host__ __device__ constexpr int dkv_tf32_parts() {
+  return D <= 384 ? 2 : 4;
+}
+// 32-column blocks of the widest part, the accumulator's columns / 32
+template <int D>
+__host__ __device__ constexpr int tf32_part_blocks(int parts) {
+  return (D / 32 + parts - 1) / parts;
+}
+// the first 32-column block of part `part`
+template <int D>
+__device__ __forceinline__ int tf32_part_begin(int parts, int part) {
+  return part * (D / 32) / parts;
+}
+// its count of 32-column blocks (a constant where the parts are even)
+template <int D>
+__device__ __forceinline__ int tf32_part_size(int parts, int part) {
+  return D / 32 % parts == 0
+             ? D / 32 / parts
+             : tf32_part_begin<D>(parts, part + 1) -
+                   tf32_part_begin<D>(parts, part);
+}
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
@@ -156,10 +181,8 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const Tf32Frag& a,
   uint32_t bh0, bl0, bh1, bl1;
   split_tf32(b0, bh0, bl0);
   split_tf32(b1, bh1, bl1);
-  if (kTf32Corrections) {
-    mma_tf32(d, a.lo, bh0, bh1);
-    mma_tf32(d, a.hi, bl0, bl1);
-  }
+  mma_tf32(d, a.lo, bh0, bh1);
+  mma_tf32(d, a.hi, bl0, bl1);
   mma_tf32(d, a.hi, bh0, bh1);
 }
 
@@ -171,28 +194,28 @@ __device__ __forceinline__ float4 ld_chunk(const unsigned char* tile,
                                           ((c ^ (r & 7)) << 4));
 }
 
-// s (16 x 8 NT) = A B^T over Depth columns from 32-column block cb0 (0:
-// the first Depth columns): A's rows a_r0 ..
-// a_r0 + 15 of tile a (a_rows rows) and B's rows 0 .. 8 NT - 1 of tile b
+// s (16 x 8 NT) = A B^T over 32-column blocks cb0 .. cb1 - 1 of the
+// depth: A's rows a_r0 .. a_r0 + 15 of tile a (a_rows rows) and B's rows
+// 0 .. 8 NT - 1 of tile b
 // (b_rows rows), in the depth order of the header. s[j] is n-tile j in
 // mma's accumulator layout: (row g, columns 8 j + 2 t, + 1), (row g + 8,
 // the same). Each 16 columns of depth (two k-steps, six products) are
 // summed from zero in the tensor core and added to s on the FMA units,
 // as the header says; the fresh sums also keep the chains of dependent
 // mma short, so that several are in flight.
-template <int NT, int Depth>
+template <int NT>
 __device__ __forceinline__ void scores_3xtf32(float (&s)[NT][4],
                                               const unsigned char* a,
                                               int a_rows, int a_r0,
                                               const unsigned char* b,
-                                              int b_rows, int cb0 = 0) {
+                                              int b_rows, int cb0, int cb1) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll 1
-  for (int cb = cb0; cb < cb0 + Depth / 32; ++cb)
+  for (int cb = cb0; cb < cb1; ++cb)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = 2 * t + h;
@@ -215,19 +238,19 @@ __device__ __forceinline__ void scores_3xtf32(float (&s)[NT][4],
 
 // o (16 x N) += P V: P the warp's 16 rows by 8 KT columns in
 // scores_3xtf32's accumulator layout (p[j]: columns 8 j ..), V rows 0 ..
-// 8 KT - 1 of tile v (v_rows rows), N columns of it from column c0 (a
-// multiple of 32), in the header's orders: step j's slot t is V's row
-// 8 j + 2 t, slot t + 4 row 8 j + 2 t + 1; o's n-tile 4 i + u column n is
-// column c0 + 32 i + 4 n + u. As in scores_3xtf32, the tile's products
-// are summed from zero in the tensor core (four n-tiles at a time) and
-// added to o on the FMA units: o sums over a whole walk (up to 1024 rows
-// of V, dO or Q), where the tensor core's rounding toward zero took dK
-// and dV past the fp32 limits.
+// 8 KT - 1 of tile v (v_rows rows), its 32-column blocks cb0 .. cb0 +
+// nb - 1 (nb <= N / 32), in the header's orders: step j's slot t is V's
+// row 8 j + 2 t, slot t + 4 row 8 j + 2 t + 1; o's n-tile 4 i + u column
+// n is column 32 (cb0 + i) + 4 n + u. As in scores_3xtf32, the tile's
+// products are summed from zero in the tensor core (four n-tiles at a
+// time) and added to o on the FMA units: o sums over a whole walk (up to
+// 1024 rows of V, dO or Q), where the tensor core's rounding toward zero
+// took dK and dV past the fp32 limits.
 template <int KT, int N>
 __device__ __forceinline__ void pv_3xtf32(float (&o)[N / 8][4],
                                           const float (&p)[KT][4],
                                           const unsigned char* v, int v_rows,
-                                          int c0) {
+                                          int cb0, int nb) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   Tf32Frag f[KT];
 #pragma unroll
@@ -235,12 +258,13 @@ __device__ __forceinline__ void pv_3xtf32(float (&o)[N / 8][4],
     split_a(f[j], p[j][0], p[j][2], p[j][1], p[j][3]);
 #pragma unroll
   for (int i = 0; i < N / 32; ++i) {
+    if (i >= nb) continue;
     float part[4][4] = {};
 #pragma unroll
     for (int j = 0; j < KT; ++j) {
       const int r = 8 * j + 2 * t;
-      const float4 y0 = ld_chunk(v, v_rows, r, c0 / 32 + i, g);
-      const float4 y1 = ld_chunk(v, v_rows, r + 1, c0 / 32 + i, g);
+      const float4 y0 = ld_chunk(v, v_rows, r, cb0 + i, g);
+      const float4 y1 = ld_chunk(v, v_rows, r + 1, cb0 + i, g);
       mma_3xtf32(part[0], f[j], y0.x, y1.x);
       mma_3xtf32(part[1], f[j], y0.y, y1.y);
       mma_3xtf32(part[2], f[j], y0.z, y1.z);
@@ -253,16 +277,18 @@ __device__ __forceinline__ void pv_3xtf32(float (&o)[N / 8][4],
   }
 }
 
-// Row g (h = 0) or g + 8 (h = 1) of pv_3xtf32's accumulator o, times
-// mul, to `row` (its column c0; fp32, row-major): the lane's columns
-// 8 t .. 8 t + 7 of each 32, two 16-byte stores.
+// Row g (h = 0) or g + 8 (h = 1) of pv_3xtf32's accumulator o, its nb
+// 32-column blocks, times mul, to `row` (their first column; fp32,
+// row-major): the lane's columns 8 t .. 8 t + 7 of each 32, two 16-byte
+// stores.
 template <int N>
 __device__ __forceinline__ void store_rows(float* row,
                                            const float (&o)[N / 8][4], int h,
-                                           float mul) {
+                                           float mul, int nb) {
   const int t = threadIdx.x % 4;
 #pragma unroll
   for (int i = 0; i < N / 32; ++i) {
+    if (i >= nb) continue;
     float* at = row + 32 * i + 8 * t;
     *reinterpret_cast<float4*>(at) =
         make_float4(o[4 * i][2 * h] * mul, o[4 * i + 1][2 * h] * mul,
@@ -273,56 +299,21 @@ __device__ __forceinline__ void store_rows(float* row,
   }
 }
 
-// The walk's R-row tiles of the other side, in list order: entry a of the
-// block's list, tile sub of that entry.
-template <int R>
-struct TileWalk {
-  const int* idx;  // the block's list, or null: one entry at row 0
-  int n, per_entry, blk_other, a = 0, sub = 0, row;
-  __device__ TileWalk(const BlockList& L, int blk)
-      : idx(L.idx == nullptr ? nullptr : L.idx + blk * L.width),
-        n(list_len(L, blk)),
-        per_entry(L.blk_other / R),
-        blk_other(L.blk_other),
-        row(idx == nullptr ? 0 : idx[0] * L.blk_other) {}
-  __device__ int col() const { return row + sub * R; }
-  __device__ void next() {
-    if (++sub == per_entry) {
-      sub = 0;
-      if (++a < n) row = idx[a] * blk_other;
-    }
-  }
-};
-
-// f(std::integral_constant<int, d>{}) for a padded head dim d these
-// kernels take (192, 256, ..., 512); any other d is refused.
-template <typename F>
-cudaError_t tf32_head_dim(int d, const F& f) {
-  switch (d) {
-    case 192:
-      return f(std::integral_constant<int, 192>{});
-    case 256:
-      return f(std::integral_constant<int, 256>{});
-    case 320:
-      return f(std::integral_constant<int, 320>{});
-    case 384:
-      return f(std::integral_constant<int, 384>{});
-    case 448:
-      return f(std::integral_constant<int, 448>{});
-    case 512:
-      return f(std::integral_constant<int, 512>{});
-  }
-  return cudaErrorInvalidValue;
-}
-
 // ---------------------------------------------------------------- forward
+
+// q rows a block owns: 16 a row group, 8 warps by the parts
+template <int D>
+__host__ __device__ constexpr int fwd_tf32_rows() {
+  return 16 * (kTf32Threads / 32 / fwd_tf32_parts<D>());
+}
 
 // shared memory: Q, the ring, and the exchange of partial scores (a
 // 16 x kv_rows fp32 tile a warp)
 template <int D>
 __host__ __device__ constexpr size_t fwd_tf32_smem_at(int kv_rows,
                                                       int slots) {
-  return 1024 + (size_t)kTile * D * 4 + (size_t)slots * kv_rows * D * 4 +
+  return 1024 + (size_t)fwd_tf32_rows<D>() * D * 4 +
+         (size_t)slots * kv_rows * D * 4 +
          (size_t)kTf32Threads / 32 * 16 * kv_rows * 4 +
          (1 + 2 * slots) * 8;
 }
@@ -359,29 +350,38 @@ static_assert(fwd_tf32_slots<192>() >= 2 && fwd_tf32_slots<256>() >= 2 &&
                   fwd_tf32_smem<512>() <= kMaxBlockSmem,
               "a block asks for more shared memory than it may take");
 
-// s += the partner warp's s (the other half of the depth) through shared
-// memory: this warp's 16 x 8 NT partial at mine, the partner's at theirs,
-// in the accumulator's lane layout, over named barrier `bar` of the two
-// warps (`again`: a previous exchange's reads must end before the
-// writes). Both warps add the same two partials, in either order: the
-// same bits.
-template <int NT>
-__device__ __forceinline__ void add_partner(float (&s)[NT][4], float4* mine,
-                                            const float4* theirs, int bar,
-                                            bool again) {
+// s = the sum of the partial scores of a row group's kParts warps (each
+// over its part of the depth) through shared memory: part p's 16 x 8 NT
+// partial at group + p * stride, in the accumulator's lane layout, over
+// named barrier `bar` of the kParts warps (`again`: a previous
+// exchange's reads must end before the writes). Every warp adds the same
+// partials in part order: the same bits.
+template <int NT, int kParts>
+__device__ __forceinline__ void add_parts(float (&s)[NT][4], float4* group,
+                                          int stride, int part, int bar,
+                                          bool again) {
   const int lane = threadIdx.x % 32;
-  if (again) named_barrier(bar, 64);
+  if (again) named_barrier(bar, 32 * kParts);
 #pragma unroll
   for (int j = 0; j < NT; ++j)
-    mine[j * 32 + lane] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
-  named_barrier(bar, 64);
+    group[part * stride + j * 32 + lane] =
+        make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+  named_barrier(bar, 32 * kParts);
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
-    const float4 o = theirs[j * 32 + lane];
-    s[j][0] += o.x;
-    s[j][1] += o.y;
-    s[j][2] += o.z;
-    s[j][3] += o.w;
+    float4 x = group[j * 32 + lane];
+#pragma unroll
+    for (int p = 1; p < kParts; ++p) {
+      const float4 o = group[p * stride + j * 32 + lane];
+      x.x += o.x;
+      x.y += o.y;
+      x.z += o.z;
+      x.w += o.w;
+    }
+    s[j][0] = x.x;
+    s[j][1] = x.y;
+    s[j][2] = x.z;
+    s[j][3] = x.w;
   }
 }
 
@@ -393,9 +393,10 @@ bsa_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
                     float* __restrict__ out, float* __restrict__ lse,
                     BlockList L, int sq, int sk, int causal, float scale,
                     Dropout drop) {
-  // 64 q rows: 4 row groups of 16 by 2 column parts
-  constexpr int kParts = kTf32Parts, kCols = D / kParts;
-  constexpr int kRows = kTile, kRowWarps = kRows / 16;
+  // 64 (or 32) q rows: 4 (or 2) row groups of 16 by 2 (or 4) column parts
+  constexpr int kParts = fwd_tf32_parts<D>();
+  constexpr int kCols = 32 * tf32_part_blocks<D>(kParts);
+  constexpr int kRows = fwd_tf32_rows<D>(), kRowWarps = kRows / 16;
   constexpr int kThreads = kTf32Threads;
   constexpr int BN = fwd_tf32_kv_rows<D>(), kSlots = fwd_tf32_slots<D>();
   constexpr int kQBytes = kRows * D * 4, kItemBytes = BN * D * 4;
@@ -470,7 +471,10 @@ bsa_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int warp = threadIdx.x / 32, t = threadIdx.x % 4;
   const int g = (threadIdx.x % 32) / 4;
   const int group = warp % kRowWarps, part = warp / kRowWarps;
-  const int r_lo = 16 * group, c_own = part * kCols;
+  // the part's 32-column blocks, of the output and of the scores' depth
+  const int cb0 = tf32_part_begin<D>(kParts, part);
+  const int nb = tf32_part_size<D>(kParts, part);
+  const int r_lo = 16 * group;
   const int rows[2] = {q0 + r_lo + g, q0 + r_lo + g + 8};
   if (!kDropout) drop.on = 0;  // compiled without the dropout code
   const uint32_t key = dropout_key(drop, bh);
@@ -485,16 +489,16 @@ bsa_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
     const bool work = !(causal && c0 > q0 + r_lo + 15 + offset);
     float s[BN / 8][4];
     mbar_wait(&full[jk % kSlots], (jk / kSlots) & 1);
-    // each warp of the row group sums its half of the depth
+    // each warp of the row group sums its part of the depth
     if (work)
-      scores_3xtf32<BN / 8, D / kParts>(s, qs, kRows, r_lo,
-                                        kvs + (jk % kSlots) * kItemBytes, BN,
-                                        part * (D / kParts / 32));
+      scores_3xtf32<BN / 8>(s, qs, kRows, r_lo,
+                            kvs + (jk % kSlots) * kItemBytes, BN, cb0,
+                            cb0 + nb);
     release(jk);
     if (work) {
-      add_partner<BN / 8>(s, xchg + warp * (BN / 8) * 32,
-                          xchg + (warp ^ kRowWarps) * (BN / 8) * 32,
-                          1 + group, n_x++ > 0);
+      add_parts<BN / 8, kParts>(s, xchg + group * (BN / 8) * 32,
+                                kRowWarps * (BN / 8) * 32, part, 1 + group,
+                                n_x++ > 0);
       // the online softmax, in fp32, as attention_tiles.cuh's fwd_update
       const bool mask = causal && c0 + BN - 1 > q0 + r_lo + offset;
       float mx[2] = {-INFINITY, -INFINITY};
@@ -542,15 +546,15 @@ bsa_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     const unsigned char* v_t = kvs + (jv % kSlots) * kItemBytes;
     mbar_wait(&full[jv % kSlots], (jv / kSlots) & 1);
-    if (work) pv_3xtf32<BN / 8, kCols>(o, s, v_t, BN, c_own);
+    if (work) pv_3xtf32<BN / 8, kCols>(o, s, v_t, BN, cb0, nb);
     release(jv);
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const size_t row = (size_t)bh * sq + rows[h];
-    store_rows<kCols>(out + row * D + c_own, o, h,
-                      l[h] > 0.f ? 1.f / l[h] : 0.f);
-    if (c_own == 0 && t == 0)
+    store_rows<kCols>(out + row * D + 32 * cb0, o, h,
+                      l[h] > 0.f ? 1.f / l[h] : 0.f, nb);
+    if (part == 0 && t == 0)
       lse[row] = l[h] > 0.f ? m[h] + logf(l[h]) : -INFINITY;
   }
 }
@@ -560,9 +564,9 @@ cudaError_t launch_fwd_tf32_at(const void* q, const void* k, const void* v,
                                void* out, void* lse, BlockList L, int bh,
                                int sq, int sk, int causal, float scale,
                                Dropout drop, cudaStream_t st) {
-  constexpr int BN = fwd_tf32_kv_rows<D>();
+  constexpr int BN = fwd_tf32_kv_rows<D>(), kRows = fwd_tf32_rows<D>();
   CUtensorMap tq, tk, tv;
-  cudaError_t err = f32_map(&tq, q, bh, sq, D, kTile);
+  cudaError_t err = f32_map(&tq, q, bh, sq, D, kRows);
   if (err == cudaSuccess) err = f32_map(&tk, k, bh, sk, D, BN);
   if (err == cudaSuccess) err = f32_map(&tv, v, bh, sk, D, BN);
   if (err != cudaSuccess) return err;
@@ -570,7 +574,7 @@ cudaError_t launch_fwd_tf32_at(const void* q, const void* k, const void* v,
                                     : bsa_fwd_tf32_kernel<D, false>;
   err = set_smem(kernel, fwd_tf32_smem<D>());
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(bh, sq / kTile), kTf32Threads, fwd_tf32_smem<D>(), st>>>(
+  kernel<<<dim3(bh, sq / kRows), kTf32Threads, fwd_tf32_smem<D>(), st>>>(
       tq, tk, tv, static_cast<float*>(out), static_cast<float*>(lse), L, sq,
       sk, causal, scale, drop);
   return cudaGetLastError();
@@ -585,7 +589,7 @@ cudaError_t launch_fwd_tf32(int d, const void* q, const void* k,
                             const void* v, void* out, void* lse, BlockList L,
                             int bh, int sq, int sk, int causal, float scale,
                             Dropout drop, cudaStream_t st) {
-  return tf32_head_dim(d, [&](auto dc) {
+  return head_dim_from<192>(d, [&](auto dc) {
     return launch_fwd_tf32_at<decltype(dc)::value, kMayDrop>(
         q, k, v, out, lse, L, bh, sq, sk, causal, scale, drop, st);
   });
@@ -593,15 +597,18 @@ cudaError_t launch_fwd_tf32(int d, const void* q, const void* k,
 
 // ------------------------------------------------------------------ dK/dV
 
-// kv rows a block owns: 2 roles by 2 row groups of 16 by kTf32Parts
-constexpr int kDkvTf32Rows = 32;
+// kv rows a block owns: 16 a row group, a role's 4 warps by the parts
+template <int D>
+__host__ __device__ constexpr int dkv_tf32_kv_rows() {
+  return 16 * (4 / dkv_tf32_parts<D>());
+}
 
 // shared memory: K and V, the ring's q tiles with their lse or delta, the
 // p hand-over of the 4 P / dS pairs and the exchange of partial scores (a
 // 16 x rows fp32 tile a warp)
 template <int D>
 __host__ __device__ constexpr size_t dkv_tf32_smem_at(int rows, int slots) {
-  return 1024 + 2 * (size_t)kDkvTf32Rows * D * 4 +
+  return 1024 + 2 * (size_t)dkv_tf32_kv_rows<D>() * D * 4 +
          (size_t)slots * (rows * D * 4 + rows * 4) + 4 * 16 * rows * 4 +
          8 * 16 * rows * 4 + (1 + 2 * slots) * 8;
 }
@@ -611,15 +618,13 @@ __host__ __device__ constexpr int dkv_tf32_slots_at(int rows) {
   while (n < 8 && dkv_tf32_smem_at<D>(rows, n + 1) <= kMaxBlockSmem) ++n;
   return n;
 }
-// ring slots dK/dV wants: Q and dO of one walk step (larger q tiles beat
-// more slots at D 448 and 512)
-constexpr int kDkvTf32Slots = 2;
-// q rows of a ring item: the most of 32, 16, 8 that leaves kDkvTf32Slots
+// q rows of a ring item: the most of 32, 16, 8 that leaves 2 slots (Q
+// and dO of one walk step; larger q tiles beat more slots)
 template <int D>
 __host__ __device__ constexpr int dkv_tf32_rows() {
-  return dkv_tf32_slots_at<D>(32) >= kDkvTf32Slots   ? 32
-         : dkv_tf32_slots_at<D>(16) >= kDkvTf32Slots ? 16
-                                                     : 8;
+  return dkv_tf32_slots_at<D>(32) >= 2   ? 32
+         : dkv_tf32_slots_at<D>(16) >= 2 ? 16
+                                         : 8;
 }
 template <int D>
 __host__ __device__ constexpr int dkv_tf32_slots() {
@@ -629,12 +634,9 @@ template <int D>
 constexpr size_t dkv_tf32_smem() {
   return dkv_tf32_smem_at<D>(dkv_tf32_rows<D>(), dkv_tf32_slots<D>());
 }
-static_assert(dkv_tf32_slots<192>() >= kDkvTf32Slots &&
-                  dkv_tf32_slots<256>() >= kDkvTf32Slots &&
-                  dkv_tf32_slots<320>() >= kDkvTf32Slots &&
-                  dkv_tf32_slots<384>() >= kDkvTf32Slots &&
-                  dkv_tf32_slots<448>() >= kDkvTf32Slots &&
-                  dkv_tf32_slots<512>() >= kDkvTf32Slots &&
+static_assert(dkv_tf32_slots<192>() >= 2 && dkv_tf32_slots<256>() >= 2 &&
+                  dkv_tf32_slots<320>() >= 2 && dkv_tf32_slots<384>() >= 2 &&
+                  dkv_tf32_slots<448>() >= 2 && dkv_tf32_slots<512>() >= 2 &&
                   dkv_tf32_smem<192>() <= kMaxBlockSmem &&
                   dkv_tf32_smem<256>() <= kMaxBlockSmem &&
                   dkv_tf32_smem<320>() <= kMaxBlockSmem &&
@@ -653,8 +655,9 @@ bsa_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ delta, float* __restrict__ dk,
                     float* __restrict__ dv, BlockList L, int sq, int sk,
                     int causal, float scale, Dropout drop) {
-  constexpr int kParts = kTf32Parts, kCols = D / kParts;
-  constexpr int BKV = kDkvTf32Rows, kGroups = BKV / 16;
+  constexpr int kParts = dkv_tf32_parts<D>();
+  constexpr int kCols = 32 * tf32_part_blocks<D>(kParts);
+  constexpr int BKV = dkv_tf32_kv_rows<D>(), kGroups = BKV / 16;
   constexpr int R = dkv_tf32_rows<D>(), kSlots = dkv_tf32_slots<D>();
   constexpr int kKvBytes = BKV * D * 4, kItemBytes = R * D * 4;
   constexpr int kRowBytes = R * 4;
@@ -731,22 +734,24 @@ bsa_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int role = warp / 4, pair = warp % 4, t = lane % 4, g = lane / 4;
   const int group = pair % kGroups, part = pair / kGroups;
-  const int k_lo = 16 * group, c_own = part * kCols;
+  // the part's 32-column blocks, of dK / dV and of the scores' depth
+  const int cb0 = tf32_part_begin<D>(kParts, part);
+  const int nb = tf32_part_size<D>(kParts, part);
+  const int k_lo = 16 * group;
   const int cols[2] = {c0 + k_lo + g, c0 + k_lo + g + 8};
   const int bar_full = 1 + pair, bar_empty = 5 + pair;  // this pair's p
   float4* p_w = p_s + pair * (R / 8) * 32;
   if (!kDropout) drop.on = 0;  // compiled without the dropout code
   const uint32_t key = dropout_key(drop, bh);
   float acc[kCols / 8][4] = {};  // dV in role P, dK in role dS
-  // the two parts' warps of a role and row group each sum half the depth
-  // of S^T (or dP^T) and add the other's
+  // the parts' warps of a role and row group each sum their part of the
+  // depth of S^T (or dP^T) and add all the parts'
   const auto scores = [&](float (&sc)[R / 8][4], const unsigned char* kv,
                           const unsigned char* item, int i) {
-    scores_3xtf32<R / 8, D / kParts>(sc, kv, BKV, k_lo, item, R,
-                                     part * (D / kParts / 32));
-    add_partner<R / 8>(sc, xchg + warp * (R / 8) * 32,
-                       xchg + (warp ^ kGroups) * (R / 8) * 32,
-                       9 + 2 * role + group, i > 0);
+    scores_3xtf32<R / 8>(sc, kv, BKV, k_lo, item, R, cb0, cb0 + nb);
+    add_parts<R / 8, kParts>(sc, xchg + (4 * role + group) * (R / 8) * 32,
+                             kGroups * (R / 8) * 32, part,
+                             9 + 2 * role + group, i > 0);
   };
   mbar_wait(kv_full, 0);
   for (int i = 0; i < n_t; ++i) {
@@ -785,7 +790,7 @@ bsa_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
             sc[j][e] = keep ? sc[j][e] * drop.keep_inv : 0.f;
           }
       mbar_wait(&full[jo % kSlots], (jo / kSlots) & 1);
-      pv_3xtf32<R / 8, kCols>(acc, sc, do_t, R, c_own);
+      pv_3xtf32<R / 8, kCols>(acc, sc, do_t, R, cb0, nb);
     } else {
       // dP^T = V dO^T, ds^T from p and delta; then dK += ds^T Q
       const float* dl_t = rows_s + (jo % kSlots) * R;
@@ -812,7 +817,7 @@ bsa_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
           sc[j][e] = pv * (dpv - dl_t[rl]) * scale;  // ds^T
         }
       mbar_wait(&full[jq % kSlots], (jq / kSlots) & 1);
-      pv_3xtf32<R / 8, kCols>(acc, sc, q_t, R, c_own);
+      pv_3xtf32<R / 8, kCols>(acc, sc, q_t, R, cb0, nb);
     }
     // both roles are done with the step's items; the loader refills their
     // slots
@@ -828,8 +833,8 @@ bsa_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
   float* dst = role == 0 ? dv : dk;
 #pragma unroll
   for (int h = 0; h < 2; ++h)
-    store_rows<kCols>(dst + ((size_t)bh * sk + cols[h]) * D + c_own, acc, h,
-                      1.f);
+    store_rows<kCols>(dst + ((size_t)bh * sk + cols[h]) * D + 32 * cb0, acc,
+                      h, 1.f, nb);
 }
 
 template <int D, bool kDense>
@@ -839,7 +844,7 @@ cudaError_t launch_dkv_tf32_at(const void* q, const void* k, const void* v,
                                BlockList L, int bh, int sq, int sk,
                                int causal, float scale, Dropout drop,
                                cudaStream_t st) {
-  constexpr int BKV = kDkvTf32Rows, R = dkv_tf32_rows<D>();
+  constexpr int BKV = dkv_tf32_kv_rows<D>(), R = dkv_tf32_rows<D>();
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t err = f32_map(&tq, q, bh, sq, D, R);
   if (err == cudaSuccess) err = f32_map(&tk, k, bh, sk, D, BKV);
@@ -867,7 +872,7 @@ cudaError_t launch_dkv_tf32(int d, const void* q, const void* k,
                             const void* delta, void* dk, void* dv,
                             BlockList L, int bh, int sq, int sk, int causal,
                             float scale, Dropout drop, cudaStream_t st) {
-  return tf32_head_dim(d, [&](auto dc) {
+  return head_dim_from<192>(d, [&](auto dc) {
     return launch_dkv_tf32_at<decltype(dc)::value, kDense>(
         q, k, v, dout, lse, delta, dk, dv, L, bh, sq, sk, causal, scale,
         drop, st);

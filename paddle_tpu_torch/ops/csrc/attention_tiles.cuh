@@ -71,6 +71,43 @@ __device__ __forceinline__ int list_row(const BlockList& L, int blk, int a) {
   return (L.idx == nullptr ? 0 : L.idx[blk * L.width + a]) * L.blk_other;
 }
 
+// The walk's R-row tiles of the other side, in list order: entry a of the
+// block's list, tile sub of that entry (the next entry's row is read at
+// the end of the step before its first tile).
+template <int R>
+struct TileWalk {
+  const int* idx;  // the block's list, or null: one entry at row 0
+  int n, per_entry, blk_other, a = 0, sub = 0, row;
+  __device__ TileWalk(const BlockList& L, int blk)
+      : idx(L.idx == nullptr ? nullptr : L.idx + blk * L.width),
+        n(list_len(L, blk)),
+        per_entry(L.blk_other / R),
+        blk_other(L.blk_other),
+        row(idx == nullptr ? 0 : idx[0] * L.blk_other) {}
+  __device__ int col() const { return row + sub * R; }
+  __device__ void next() {
+    if (++sub == per_entry) {
+      sub = 0;
+      if (++a < n) row = idx[a] * blk_other;
+    }
+  }
+};
+
+template <int N>
+struct IntC {
+  static constexpr int value = N;
+};
+
+// f(IntC<d>{}) for a padded head dim d of Lo, Lo + 64, ..., 512 (the
+// head dims past 128 a kernel is built for); any other d is refused.
+template <int Lo, typename F>
+cudaError_t head_dim_from(int d, const F& f) {
+  if constexpr (Lo > 512)
+    return cudaErrorInvalidValue;
+  else
+    return d == Lo ? f(IntC<Lo>{}) : head_dim_from<Lo + 64>(d, f);
+}
+
 template <typename T> __device__ __forceinline__ float to_float(T x);
 template <> __device__ __forceinline__ float to_float<float>(float x) {
   return x;

@@ -388,26 +388,8 @@ __host__ __device__ constexpr int fwd_list_threads() {
   return kConsumerThreads + (fwd_list_producer_warp<D>() ? 32 : 0);
 }
 
-// The walk's kv tiles in order: entry a of the block's list, 64-row tile
-// sub of that entry (the next entry's row is read at the end of the step
-// before its first tile).
-struct ListWalk {
-  const int* idx;  // the block's list, or null: one entry at row 0
-  int n, per_entry, blk_other, a = 0, sub = 0, row;
-  __device__ ListWalk(const BlockList& L, int blk)
-      : idx(L.idx == nullptr ? nullptr : L.idx + blk * L.width),
-        n(list_len(L, blk)),
-        per_entry(L.blk_other / kTile),
-        blk_other(L.blk_other),
-        row(idx == nullptr ? 0 : idx[0] * L.blk_other) {}
-  __device__ int col() const { return row + sub * kTile; }
-  __device__ void next() {
-    if (++sub == per_entry) {
-      sub = 0;
-      if (++a < n) row = idx[a] * blk_other;
-    }
-  }
-};
+// The walk's 64-row kv tiles in order (attention_tiles.cuh).
+using ListWalk = TileWalk<kTile>;
 
 template <int D>
 __global__ void __launch_bounds__(fwd_list_threads<D>(), 1)
@@ -622,28 +604,6 @@ cudaError_t launch_bsa_fwd_wgmma(const void* q, const void* k, const void* v,
 // 16, S 1024, D 512, causal 17.2 GFLOP (0.017 ms) against 67 MB (0.020
 // ms, the bound).
 
-template <int N>
-struct IntC {
-  static constexpr int value = N;
-};
-
-// f(IntC<d>{}) for a padded head dim d the D-split kernels take (320, 384,
-// 448, 512); any other d is refused.
-template <typename F>
-cudaError_t dsplit_head_dim(int d, const F& f) {
-  switch (d) {
-    case 320:
-      return f(IntC<320>{});
-    case 384:
-      return f(IntC<384>{});
-    case 448:
-      return f(IntC<448>{});
-    case 512:
-      return f(IntC<512>{});
-  }
-  return cudaErrorInvalidValue;
-}
-
 template <int D>
 __host__ __device__ constexpr size_t fwd_dsplit_smem_at(int slots) {
   return 1024 + (1 + slots) * tile_bytes<D>(kTile) + (1 + 2 * slots) * 8;
@@ -829,7 +789,7 @@ inline cudaError_t launch_fwd_dsplit_wgmma(int d, const void* q,
                                            int bh, int sq, int sk, int causal,
                                            float scale, Dropout drop,
                                            cudaStream_t st) {
-  return dsplit_head_dim(d, [&](auto dc) {
+  return head_dim_from<320>(d, [&](auto dc) {
     return launch_fwd_dsplit_wgmma_at<decltype(dc)::value>(
         q, k, v, out, lse, L, bh, sq, sk, causal, scale, drop, st);
   });
@@ -1705,7 +1665,7 @@ cudaError_t launch_dq_dsplit_wgmma(int d, const void* q, const void* k,
                                    void* dq, BlockList L, int bh, int sq,
                                    int sk, int causal, float scale,
                                    Dropout drop, cudaStream_t st) {
-  return dsplit_head_dim(d, [&](auto dc) {
+  return head_dim_from<320>(d, [&](auto dc) {
     return launch_dq_dsplit_wgmma_at<decltype(dc)::value, kDense>(
         q, k, v, dout, lse, delta, dq, L, bh, sq, sk, causal, scale, drop,
         st);
@@ -1912,7 +1872,7 @@ cudaError_t launch_dkv_dsplit_wgmma(int d, const void* q, const void* k,
                                     void* dk, void* dv, BlockList L, int bh,
                                     int sq, int sk, int causal, float scale,
                                     Dropout drop, cudaStream_t st) {
-  return dsplit_head_dim(d, [&](auto dc) {
+  return head_dim_from<320>(d, [&](auto dc) {
     return launch_dkv_dsplit_wgmma_at<decltype(dc)::value, kDense>(
         q, k, v, dout, lse, delta, dk, dv, L, bh, sq, sk, causal, scale,
         drop, st);

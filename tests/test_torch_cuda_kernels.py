@@ -1456,26 +1456,27 @@ def _tf32_dims(d):
 TF32_MUTATIONS = {
     # every product plain TF32: the hi x hi term alone
     "tf32_plain": ("attention_tf32.cuh", "mma_3xtf32",
-                   "if (kTf32Corrections) {", "if (false) {"),
+                   "  mma_tf32(d, a.lo, bh0, bh1);\n"
+                   "  mma_tf32(d, a.hi, bl0, bl1);\n", ""),
     # the forward's scores leave Q K^T's last 64 columns of depth out (of
-    # each warp's half past 256)
+    # each warp's part)
     "fwd_depth": ("attention_tf32.cuh", "bsa_fwd_tf32_kernel",
-                  "scores_3xtf32<BN / 8, D / kParts>(",
-                  "scores_3xtf32<BN / 8, D / kParts - 64>("),
-    # the second warp of a row group multiplies p by V's first columns
+                  "BN, cb0,\n                            cb0 + nb);",
+                  "BN, cb0,\n                            cb0 + nb - 2);"),
+    # the forward's column parts past the first multiply p by V's first
+    # columns
     "fwd_columns": ("attention_tf32.cuh", "bsa_fwd_tf32_kernel",
-                    "pv_3xtf32<BN / 8, kCols>(o, s, v_t, BN, c_own);",
-                    "pv_3xtf32<BN / 8, kCols>(o, s, v_t, BN, 0);"),
-    # S^T and dP^T leave the last 64 columns of depth out (of each
-    # part's half past 256)
+                    "pv_3xtf32<BN / 8, kCols>(o, s, v_t, BN, cb0, nb);",
+                    "pv_3xtf32<BN / 8, kCols>(o, s, v_t, BN, 0, nb);"),
+    # S^T and dP^T leave the last 64 columns of depth out (of each part's)
     "dkv_depth": ("attention_tf32.cuh", "bsa_dkv_tf32_kernel",
-                  "scores_3xtf32<R / 8, D / kParts>(",
-                  "scores_3xtf32<R / 8, D / kParts - 64>("),
-    # the second column part's role dS multiplies ds^T by Q's first
+                  "item, R, cb0, cb0 + nb);",
+                  "item, R, cb0, cb0 + nb - 2);"),
+    # role dS's column parts past the first multiply ds^T by Q's first
     # columns
     "dkv_columns": ("attention_tf32.cuh", "bsa_dkv_tf32_kernel",
-                    "pv_3xtf32<R / 8, kCols>(acc, sc, q_t, R, c_own);",
-                    "pv_3xtf32<R / 8, kCols>(acc, sc, q_t, R, 0);"),
+                    "pv_3xtf32<R / 8, kCols>(acc, sc, q_t, R, cb0, nb);",
+                    "pv_3xtf32<R / 8, kCols>(acc, sc, q_t, R, 0, nb);"),
 }
 
 
@@ -1484,8 +1485,8 @@ def _tf32_mutants_miss(card, out_dir, monkeypatch):
     the flash source is rebuilt beside copies of attention_tf32.cuh whose
     products are plain TF32 (no correction terms), whose forward scores
     or dK/dV S^T and dP^T leave the last 64 columns of a part's depth
-    out, and whose second column part reads V's (forward) or Q's (dK/dV)
-    first columns; at BH 4, S 1024, causal, D 256 and 512, each result a
+    out, and whose column parts past the first read V's (forward) or Q's
+    (dK/dV) first columns; at BH 4, S 1024, causal, D 256 and 512, each result a
     mutant breaks must miss REL_TOL, while the right kernels meet the
     limits. Prints both readings."""
     import ctypes
